@@ -1,0 +1,125 @@
+"""Card tests of the port: each CUDA kernel against its plain PyTorch
+version on the card (tolerance 0, exact integer arithmetic), the launch
+contract, and the whole slice on the card against the JAX reference's
+golden outputs.  Every test here carries the ``cuda`` marker and skips
+without a card; this file imports no JAX, so it also runs where JAX is
+not installed:
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
+"""
+
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import convert, runtime
+from repro_torch.blocks import base
+from repro_torch.core import cnn, deploy
+from repro_torch.kernels import conv2d
+from repro_torch.serve import CNNEngine, CNNServeConfig, ImageRequest
+from torch_parity import cuda, operands  # noqa: F401 (fixture)
+
+pytestmark = pytest.mark.cuda
+
+SRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+PINNED = SRC / "plans" / "quickstart_v5e_conv1_conv3.json"
+GOLDEN = SRC / "golden" / "quickstart_reference.npz"
+
+KERNELS = {"conv1_layer": (conv2d.conv1_layer, conv2d.conv1_layer_plain),
+           "fused_dot_layer": (base.fused_dot_layer,
+                               base.fused_dot_layer_plain),
+           "packed_dot_layer": (base.packed_dot_layer,
+                                base.packed_dot_layer_plain)}
+# int16/int32 plane accumulator boundary, packing boundary, containers,
+# the serving points and the extremes
+POINTS = [(3, 3), (3, 8), (6, 4), (6, 5), (6, 6), (8, 6), (8, 8), (9, 8),
+          (8, 9), (12, 16), (16, 12), (16, 16)]
+CASES = [(k, d, c) for k in KERNELS for d, c in POINTS
+         if k != "packed_dot_layer"
+         or conv2d._pack_shift(d, c) <= conv2d.PACK_SHIFT_BUDGET]
+
+
+@pytest.mark.parametrize("name,d,c", CASES)
+def test_kernel_matches_plain_on_card(cuda, name, d, c):
+    kernel, plain = KERNELS[name]
+    rng = np.random.default_rng(300 * d + c)
+    x, w = operands(rng, (3, 16, 40, 40), 7, d, c)
+    xc, wc = torch.from_numpy(x).to(cuda), torch.from_numpy(w).to(cuda)
+    before = kernel.launches
+    y = kernel(xc, wc, data_bits=d, coeff_bits=c)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert y.dtype == torch.int32 and tuple(y.shape) == (3, 7, 16, 40)
+    assert torch.equal(y, plain(xc, wc, data_bits=d, coeff_bits=c))
+    assert np.array_equal(y.cpu().numpy(), plain(
+        torch.from_numpy(x), torch.from_numpy(w), data_bits=d,
+        coeff_bits=c).numpy())
+
+
+@pytest.mark.parametrize("name", sorted(KERNELS))
+def test_kernel_container_range_int16_inputs_on_card(cuda, name):
+    """Inputs over the whole int16 container at d=3 (Conv1's int16 plane
+    accumulator wraps; the int8 dot narrows them as the reference
+    does)."""
+    kernel, plain = KERNELS[name]
+    rng = np.random.default_rng(11)
+    x, w = operands(rng, (2, 16, 24, 5), 3, 3, 8, x_range=(-32768, 32767))
+    xc, wc = torch.from_numpy(x).to(cuda), torch.from_numpy(w).to(cuda)
+    assert torch.equal(kernel(xc, wc, data_bits=3, coeff_bits=8),
+                       plain(xc, wc, data_bits=3, coeff_bits=8))
+
+
+@pytest.mark.parametrize("name", sorted(KERNELS))
+def test_kernel_refuses_what_it_does_not_take(cuda, name):
+    kernel, _ = KERNELS[name]
+    x = torch.zeros((1, 16, 8, 2), dtype=torch.int8, device=cuda)
+    w = torch.zeros((3, 2, 3, 3), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel(x.transpose(1, 2).contiguous().transpose(1, 2), w,
+               data_bits=6, coeff_bits=4)
+    with pytest.raises(ValueError, match="on cuda"):
+        kernel(x, w.cpu(), data_bits=6, coeff_bits=4)
+    big = torch.zeros((64, 64, 3, 3), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="shared-memory"):
+        kernel(torch.zeros((1, 16, 8, 64), dtype=torch.int8, device=cuda),
+               big, data_bits=6, coeff_bits=4)
+    empty = kernel(x[:0], w, data_bits=6, coeff_bits=4)
+    assert tuple(empty.shape) == (0, 3, 16, 8)
+
+
+def golden_engine(device, max_batch):
+    plan = runtime.load_plan(PINNED)
+    pcfg = deploy.plan_config(plan)
+    with np.load(GOLDEN) as z:
+        weights = [z[f"{PINNED.stem}.w{i}"] for i in range(3)]
+        gx, gy = z[f"{PINNED.stem}.x"], z[f"{PINNED.stem}.y"]
+    params = convert.params_from_numpy(weights, pcfg, device)
+    engine = CNNEngine.from_plan(plan, params=params, device=device,
+                                 serve_cfg=CNNServeConfig(max_batch=max_batch))
+    return engine, gx, gy
+
+
+def test_slice_on_card_matches_golden_through_all_kernels(cuda):
+    engine, gx, gy = golden_engine(cuda, 8)
+    counters = [fn for fn, _ in KERNELS.values()]
+    before = [fn.launches for fn in counters]
+    reqs = [ImageRequest(image=x, request_id=i)
+            for i, x in enumerate(engine.compiled.sample_inputs(8))]
+    engine.run(reqs)
+    assert np.array_equal(np.stack([r.image for r in reqs]), gx)
+    assert np.array_equal(np.stack([r.output for r in reqs]), gy)
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [1, 1, 1]
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 8, 16, 17])
+def test_compiled_on_card_matches_cpu_at_every_bucket(cuda, n):
+    engine, _, _ = golden_engine(cuda, 16)
+    model = engine.compiled
+    xs = np.stack(model.sample_inputs(n, seed=n))
+    y = model(xs)
+    assert y.device.type == "cuda"
+    ref = cnn.cnn_forward_ref([w.cpu() for w in model.params],
+                              torch.from_numpy(xs), model.cfg)
+    assert torch.equal(y.cpu(), ref)

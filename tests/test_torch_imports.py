@@ -1,0 +1,69 @@
+"""The port stands alone: no module of ``repro_torch`` and not
+``chip_smoke.py`` imports JAX or anything of the reference package, and
+importing the port leaves both out of ``sys.modules``.  Importing builds
+no kernel (the CPU tests import every module; nvcc runs only at first
+use on the card)."""
+
+import ast
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+import repro_torch
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _sources():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import(path):
+    bad = _imported_roots(path) & set(FORBIDDEN)
+    assert not bad, f"{path} imports {sorted(bad)}"
+
+
+def test_importing_the_port_loads_no_jax_and_no_reference():
+    """Every module, imported in a fresh process without nvcc on PATH:
+    none loads JAX or the reference, and none builds a kernel."""
+    mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                  "repro_torch.")]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n")
+    env_path = str(ROOT / "src")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                   env={"PYTHONPATH": env_path, "PATH": "/usr/bin:/bin"})
+
+
+def test_build_names_a_library_per_source_hash():
+    from repro_torch.kernels import build
+    paths = {k: build.library_path(k) for k in build.KERNELS}
+    assert len(set(paths.values())) == len(build.KERNELS)
+    for k, p in paths.items():
+        assert p.parent == build.BUILD_DIR and p.name.startswith(k + "-")
+        assert (build.CSRC / f"{k}.cu").exists()
+    assert build.BUILD_DIR == ROOT / "build" / "repro_torch"
+    with pytest.raises(KeyError, match="unknown kernel"):
+        build.library_path("conv9_layer")
