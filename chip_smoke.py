@@ -8,11 +8,12 @@ It imports nothing of JAX or of the JAX package ``repro`` and runs, in
 order (any mismatch or error raises and the exit code is non-zero):
 
 1. environment: the card's name and power limit as nvidia-smi reports
-   them, and the torch, CUDA and nvcc versions;
-2. build: the three CUDA kernels from ``src/repro_torch/kernels/csrc``
+   them, the torch, CUDA and nvcc versions, and the int32 CUDA-core rate
+   from the card's SM count and maximum SM clock;
+2. build: the six CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc each, all started together), with ``-Xptxas -v``;
-3. kernels against their plain PyTorch versions on the card, with
-   tolerance zero (``torch.equal``: the path is exact integer
+3. layer kernels (K1–K3) against their plain PyTorch versions on the
+   card, with tolerance zero (``torch.equal``: the path is exact integer
    arithmetic) at the serving path's shapes at bucket 16 and on an edge
    grid of bit widths with odd out_ch and in_ch = 40; at the serving
    shapes each kernel is timed with CUDA events over back-to-back calls
@@ -21,7 +22,13 @@ order (any mismatch or error raises and the exit code is non-zero):
    least time the card could take (``bound_ms``) and
    ``torch.nn.functional.conv2d`` on float32 copies with TF32 off
    (``library_ms``, exact at these widths; timed here only);
-4. serve: ``repro_torch.launch.serve``'s code path on both committed
+4. plane kernels (K4–K6) the same way: at P = 1 on 32×128, at the
+   quickstart layers' plane counts (out_ch·in_ch, or channel pairs ·
+   in_ch) and bits, where they are timed (``library_ms``: one grouped
+   ``F.conv2d``, groups = P), on the edge grid, on int16 container-range
+   inputs, and through ``ConvBlock.apply`` against the JAX reference's
+   golden ``apply`` outputs;
+5. serve: ``repro_torch.launch.serve``'s code path on both committed
    plans with the golden weights, 64 requests, max_batch 16, after one
    untimed warm-up pass; outputs must equal the JAX reference's golden
    outputs (``src/repro_torch/golden/quickstart_reference.npz``) and the
@@ -32,7 +39,18 @@ order (any mismatch or error raises and the exit code is non-zero):
    pinned, pinned, unpinned, twice over), and a profiler trace of one
    pinned pass for the device time per step, by kernel, and the idle
    share;
-5. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
+6. the per-plane path on both committed plans with the golden weights:
+   ``cnn_forward_loop`` (one plane-kernel launch per plane) and the
+   single-image ``cnn_forward`` of every golden image equal the golden
+   outputs;
+7. plan on the card: the launcher's default path — the port's own full
+   resource sweep (timed), a ``v5e`` plan, ``validate_plan`` on the
+   card (bit-exact, MAPE < 2 % on every budgeted resource), the same
+   for a plan with layers pinned to conv2, conv1 and conv3, then 16
+   requests served from the ``v5e`` plan; the counters are set to 0
+   just before and read just after, and each plane kernel must have
+   launched;
+8. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a result where ``torch.cuda.is_available()``
@@ -41,6 +59,7 @@ is false, or where the port's sources are not beside it.
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -58,11 +77,13 @@ TIMED_REQUESTS = 4096            # 256 full steps per timed pass
 PROFILED_REQUESTS = 1024
 
 # H100 SXM peaks (NVIDIA data sheet, dense): memory 3.35 TB/s; int8
-# tensor cores 1,979 TOP/s; 67 TFLOP/s float32 outside the tensor cores,
-# taken as the rate of int32 operands (the table has no int32 entry).
+# tensor cores 1,979 TOP/s.  Integer operands wider than 8 bits run on
+# the CUDA cores: a Hopper SM has 64 INT32 lanes (half its 128 FP32
+# lanes), each a multiply-add (2 operations) per clock, so their rate is
+# computed from the card's SM count and maximum SM clock (``int32_rate``).
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
-CUDA_CORE_OPS_PER_S = 67e12
+INT32_LANES_PER_SM = 64
 
 # main-path shapes at bucket 16: (kernel, N, H, W, ic, oc, d, c, on the
 # pinned plan); the pinned plan runs each kernel at one of them
@@ -80,7 +101,24 @@ REPLACES = {
     "conv1_layer": "src/repro/kernels/conv2d.py:75",
     "fused_dot_layer": "src/repro/blocks/base.py:245",
     "packed_dot_layer": "src/repro/blocks/base.py:261",
+    "conv2_planes": "src/repro/kernels/conv2d.py:107",
+    "conv3_planes": "src/repro/kernels/conv2d.py:119",
+    "conv4_planes": "src/repro/kernels/conv2d.py:146",
 }
+# plane-kernel cases at the quickstart layers (1→8, 8→8, 8→4 channels,
+# 32×128): (kernel, P, d, c, on the own v5e plan's path); P is out_ch ·
+# in_ch for conv2 and channel pairs · in_ch for conv3/conv4
+PLANE_CASES = (
+    ("conv2_planes", 8, 8, 6, True), ("conv2_planes", 64, 8, 6, False),
+    ("conv2_planes", 32, 6, 4, False),
+    ("conv3_planes", 4, 8, 6, False), ("conv3_planes", 32, 8, 6, True),
+    ("conv3_planes", 16, 6, 4, False),
+    ("conv4_planes", 4, 8, 6, False), ("conv4_planes", 32, 8, 6, False),
+    ("conv4_planes", 16, 6, 4, True),
+)
+# the pins of the planned variant that runs conv2 (K4) and conv1 (K3)
+PINNED_PLAN_PINS = {0: "conv2", 1: "conv1", 2: "conv3"}
+SERVED_FROM_OWN_PLAN = 16
 
 
 def nvidia_smi_line() -> str:
@@ -89,6 +127,21 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip()
+
+
+@functools.lru_cache(maxsize=None)
+def int32_rate() -> float:
+    """Integer operations per second of the CUDA cores: SMs × 64 INT32
+    lanes × 2 operations (multiply-add) × the maximum SM clock, as the
+    card reports them."""
+    import torch
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT32_LANES_PER_SM * 2 * mhz * 1e6
 
 
 def operands(rng, n, h, w, ic, oc, d, c, *, x_range=None):
@@ -154,17 +207,32 @@ def bound(x, wk, d, c):
     into out_ch (the shift-adds and the packing are how the reference
     computes it, not what it computes): a multiply and an add per tap,
     input channel and output, at the int8 rate where ``_dot_dtype``
-    takes int8 operands, else at the CUDA-core rate."""
-    import torch
-    from repro_torch.kernels.conv2d import _dot_dtype
+    takes int8 operands, else at the CUDA-core rate (``int32_rate``)."""
     n, h, w, ic = x.shape
     oc = wk.shape[0]
     pix = n * h * w
     nbytes = (x.numel() * x.element_size() + wk.numel() * wk.element_size()
               + pix * oc * 4)
-    ops = 2 * pix * oc * ic * 9
+    return _bound(nbytes, 2 * pix * oc * ic * 9, d, c)
+
+
+def plane_bound(x, wk, n_out, d, c):
+    """(bound_ms, bound_by) of a plane kernel: x (P, H, W) and w read
+    once, the int32 output (P, n_out, H, W) written once; ``n_out``
+    3x3 convolutions per plane (Conv3's packing is how the reference
+    computes its two), a multiply and an add per tap, at the rate of
+    ``_dot_dtype``'s operands."""
+    pix = x.numel()
+    nbytes = (x.numel() * x.element_size() + wk.numel() * wk.element_size()
+              + pix * n_out * 4)
+    return _bound(nbytes, 2 * pix * n_out * 9, d, c)
+
+
+def _bound(nbytes, ops, d, c):
+    import torch
+    from repro_torch.kernels.conv2d import _dot_dtype
     rate = INT8_OPS_PER_S if _dot_dtype(d, c) == torch.int8 \
-        else CUDA_CORE_OPS_PER_S
+        else int32_rate()
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -198,26 +266,9 @@ def check_kernels():
         "packed_dot_layer": (base.packed_dot_layer,
                              base.packed_dot_layer_plain),
     }
-    entries = {k: {"name": k, "route": "cuda",
-                   "source": f"src/repro_torch/kernels/csrc/{k}.cu",
-                   "replaces": REPLACES[k], "max_abs_err": 0,
-                   "equal": True, "cases": []} for k in wrappers}
+    entries = {k: kernel_entry(k) for k in wrappers}
+    compare = _comparer(entries, wrappers)
     rng = np.random.default_rng(0)
-
-    def compare(name, label, x, wk, d, c):
-        kern, plain = wrappers[name]
-        y = kern(x, wk, data_bits=d, coeff_bits=c)
-        torch.cuda.synchronize()
-        y_plain = plain(x, wk, data_bits=d, coeff_bits=c)
-        err = int((y.to(torch.int64) - y_plain.to(torch.int64)).abs().max())
-        eq = torch.equal(y, y_plain)
-        print(f"  {name:17s} {label:34s} equal={eq} max_abs_err={err}")
-        if not eq:
-            raise AssertionError(f"{name} disagrees with its plain version "
-                                 f"at {label}: max_abs_err={err}")
-        e = entries[name]
-        e["max_abs_err"] = max(e["max_abs_err"], err)
-        return y
 
     print("[kernels] main-path shapes at bucket 16, against the plain "
           "versions (tolerance 0)")
@@ -272,6 +323,155 @@ def check_kernels():
     return entries
 
 
+def plane_operands(rng, p, h, w, d, c, n_out, *, x_range=None):
+    """P planes over the full signed d-bit range (or ``x_range``, then
+    in an int16 container) and their weights over the full c-bit
+    range, extremes forced in, on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.conv2d import container_dtype
+    lo, hi = x_range or (-(1 << (d - 1)), (1 << (d - 1)) - 1)
+    x = rng.integers(lo, hi + 1, (p, h, w))
+    x.reshape(-1)[:2] = (lo, hi)
+    wshape = (p, 3, 3) if n_out == 1 else (p, n_out, 3, 3)
+    wk = rng.integers(-(1 << (c - 1)), 1 << (c - 1), wshape)
+    wk.reshape(-1)[:2] = (-(1 << (c - 1)), (1 << (c - 1)) - 1)
+    xdt = torch.int16 if x_range else container_dtype(d)
+    return (torch.from_numpy(x).to(xdt).cuda(),
+            torch.from_numpy(wk).to(container_dtype(c)).cuda())
+
+
+def library_planes(x, wk, n_out):
+    """(ms, output) of one grouped cuDNN float32 convolution of the same
+    planes (groups = P, TF32 off), exact at the timed widths: the
+    yardstick, never called by the port."""
+    import torch
+    import torch.nn.functional as F
+    torch.backends.cudnn.allow_tf32 = False
+    p, h, w = x.shape
+    xf = x.float()[None].contiguous()
+    wf = wk.float().reshape(p * n_out, 1, 3, 3).contiguous()
+
+    def conv():
+        return F.conv2d(xf, wf, padding=1, groups=p)
+    y = conv()[0].reshape((p, n_out, h, w) if n_out > 1 else (p, h, w))
+    return time_ms(conv, 200, warmup=10), y
+
+
+def _comparer(entries, wrappers):
+    """compare(name, label, x, wk, d, c): one kernel call against its
+    plain version on the same card tensors, tolerance 0; raises on a
+    mismatch and keeps the largest error in the kernel's entry."""
+    import torch
+
+    def compare(name, label, x, wk, d, c):
+        kern, plain = wrappers[name][:2]
+        y = kern(x, wk, data_bits=d, coeff_bits=c)
+        torch.cuda.synchronize()
+        y_plain = plain(x, wk, data_bits=d, coeff_bits=c)
+        err = int((y.to(torch.int64) - y_plain.to(torch.int64)).abs()
+                  .max()) if y.numel() else 0
+        eq = torch.equal(y, y_plain)
+        print(f"  {name:17s} {label:34s} equal={eq} max_abs_err={err}")
+        if not eq:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"at {label}: max_abs_err={err}")
+        e = entries[name]
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+        return y
+    return compare
+
+
+def kernel_entry(name):
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": REPLACES[name], "max_abs_err": 0, "equal": True,
+            "cases": [], "launches": 0}
+
+
+def check_plane_kernels():
+    """Phase 4.  Returns {kernel: entry} for the kernels line."""
+    import numpy as np
+    import torch
+    from repro_torch.blocks import get_block
+    from repro_torch.kernels import conv2d
+
+    wrappers = {
+        "conv2_planes": (conv2d.conv2_planes, conv2d.conv2_planes_plain, 1),
+        "conv3_planes": (conv2d.conv3_planes, conv2d.conv3_planes_plain, 2),
+        "conv4_planes": (conv2d.conv4_planes, conv2d.conv4_planes_plain, 2),
+    }
+    entries = {k: kernel_entry(k) for k in wrappers}
+    compare = _comparer(entries, wrappers)
+    rng = np.random.default_rng(1)
+
+    print("[planes] P = 1 on 32x128, against the plain versions "
+          "(tolerance 0)")
+    for name, (_, _, n_out) in wrappers.items():
+        for d, c in ((8, 6), (6, 6), (16, 16)):
+            x, wk = plane_operands(rng, 1, 32, 128, d, c, n_out)
+            compare(name, f"P=1 (32,128) d{d}c{c}", x, wk, d, c)
+
+    print("[planes] the quickstart layers' plane counts on 32x128, timed")
+    for name, p, d, c, on_plan in PLANE_CASES:
+        kern, plain, n_out = wrappers[name]
+        x, wk = plane_operands(rng, p, 32, 128, d, c, n_out)
+        y = compare(name, f"P={p} (32,128) d{d}c{c}", x, wk, d, c)
+        ms = time_ms(lambda: kern(x, wk, data_bits=d, coeff_bits=c), 200,
+                     warmup=10)
+        plain_ms = time_ms(lambda: plain(x, wk, data_bits=d, coeff_bits=c),
+                           5, warmup=1)
+        dev_ms = device_ms(lambda: kern(x, wk, data_bits=d, coeff_bits=c),
+                           f"{name}_kernel")
+        lib_ms, y_lib = library_planes(x, wk, n_out)
+        lib_eq = torch.equal(y_lib.to(torch.int32), y)
+        b_ms, b_by = plane_bound(x, wk, n_out, d, c)
+        case = {"shape": [p, 32, 128], "d": d, "c": c, "ms": ms,
+                "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": lib_ms,
+                "library_equal": lib_eq}
+        print(f"    ms={ms:.6f} device_ms={dev_ms} plain_ms={plain_ms:.6f} "
+              f"bound_ms={b_ms:.6f} ({b_by}) library_ms={lib_ms:.6f} "
+              f"library_equal={lib_eq}")
+        entries[name]["cases"].append(case)
+        if on_plan:
+            entries[name].update({k: case[k] for k in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")})
+            entries[name]["shape"] = case["shape"]
+
+    print("[planes] edge grid: P=5 on (16, 24), full signed ranges with "
+          "the extremes, and int16 container-range inputs")
+    for d, c in EDGE_BITS + ((6, 7), (7, 6), (5, 3)):
+        for name, (_, _, n_out) in wrappers.items():
+            x, wk = plane_operands(rng, 5, 16, 24, d, c, n_out)
+            compare(name, f"P=5 d{d}c{c}", x, wk, d, c)
+    for name, (_, _, n_out) in wrappers.items():
+        for d, c in ((3, 8), (6, 6)):
+            x, wk = plane_operands(rng, 5, 16, 24, d, c, n_out,
+                                   x_range=(-32768, 32767))
+            compare(name, f"d{d}c{c} container-range x (int16)", x, wk, d,
+                    c)
+
+    print("[planes] ConvBlock.apply on the card against the JAX "
+          "reference's golden apply outputs")
+    with np.load(GOLDEN) as z:
+        keys = sorted({k.rsplit(".", 1)[0] for k in z.files
+                       if k.startswith("apply.")})
+        for key in keys:
+            _, block, bits = key.split(".")
+            d, c = (int(v) for v in bits[1:].split("c"))
+            y = get_block(block).apply(
+                torch.from_numpy(z[f"{key}.x"]).cuda(),
+                torch.from_numpy(z[f"{key}.w"]).cuda(), data_bits=d,
+                coeff_bits=c)
+            if not np.array_equal(y.cpu().numpy(), z[f"{key}.y"]):
+                raise AssertionError(f"{key}: apply on the card differs "
+                                     f"from the JAX golden")
+    print(f"  {len(keys)} golden apply outputs equal (tolerance 0)")
+    return entries
+
+
 def serve_args(stem, requests):
     from repro_torch.launch import serve
     return serve.parse_args([
@@ -281,7 +481,7 @@ def serve_args(stem, requests):
 
 
 def serve_plans(entries):
-    """Phase 4: both committed plans through the launcher's code path.
+    """Phase 5: both committed plans through the launcher's code path.
 
     Each plan is served once untimed first, so that no later pass pays
     a first use (library load, lazy module load, allocator growth); then
@@ -293,25 +493,19 @@ def serve_plans(entries):
     import numpy as np
     import torch
     from repro_torch import convert
-    from repro_torch.blocks import base
     from repro_torch.core import deploy
     from repro_torch.core.cnn import cnn_forward_ref
-    from repro_torch.kernels import conv2d
     from repro_torch.launch import serve
     from repro_torch.runtime import load_plan
 
-    counters = {"conv1_layer": conv2d.conv1_layer,
-                "fused_dot_layer": base.fused_dot_layer,
-                "packed_dot_layer": base.packed_dot_layer}
-    for e in entries.values():
-        e["launches"] = 0
     golden = np.load(GOLDEN)
     for stem in (UNPINNED, PINNED):
         serve.run_cnn(serve_args(stem, REQUESTS))          # warm-up pass
-        for fn in counters.values():
-            fn.launches = 0
-        engine, reqs, _ = serve.run_cnn(serve_args(stem, REQUESTS))
-        launches = {k: fn.launches for k, fn in counters.items()}
+        want = {"fused_dot_layer"} | (
+            {"conv1_layer", "packed_dot_layer"} if stem == PINNED else set())
+        engine, reqs, _ = drive(
+            entries, f"serve {stem}", want,
+            lambda: serve.run_cnn(serve_args(stem, REQUESTS)))
         forwards = sum(engine.stats()["bucket_hits"].values())
         xs = np.stack([r.image for r in reqs])
         ys = np.stack([r.output for r in reqs])
@@ -327,18 +521,14 @@ def serve_plans(entries):
         if not np.array_equal(ys, y_ref):
             raise AssertionError(f"{stem}: outputs differ from the port's "
                                  f"cnn_forward_ref on the CPU")
-        want = {"fused_dot_layer"} | (
-            {"conv1_layer", "packed_dot_layer"} if stem == PINNED else set())
         for k in want:
-            if launches[k] < forwards:
+            n = entries[k]["launches_by_path"][f"serve {stem}"]
+            if n < forwards:
                 raise AssertionError(
-                    f"{stem}: {k} launched {launches[k]} times in "
-                    f"{forwards} forwards")
-        for k, v in launches.items():
-            entries[k]["launches"] += v
-        print(f"[serve] {stem}: {forwards} forwards, launches {launches}; "
-              f"{len(reqs)} outputs equal cnn_forward_ref (CPU), the first "
-              f"8 equal the JAX golden")
+                    f"{stem}: {k} launched {n} times in {forwards} forwards")
+        print(f"[serve] {stem}: {forwards} forwards; {len(reqs)} outputs "
+              f"equal cnn_forward_ref (CPU), the first 8 equal the JAX "
+              f"golden")
 
     rates = {UNPINNED: [], PINNED: []}
     step_ms = {UNPINNED: [], PINNED: []}
@@ -393,6 +583,145 @@ def serve_profile(stem, step_ms):
     return result
 
 
+def counters():
+    """Every kernel wrapper of the port, by kernel name."""
+    from repro_torch.blocks import base
+    from repro_torch.kernels import conv2d
+    return {"conv1_layer": conv2d.conv1_layer,
+            "fused_dot_layer": base.fused_dot_layer,
+            "packed_dot_layer": base.packed_dot_layer,
+            "conv2_planes": conv2d.conv2_planes,
+            "conv3_planes": conv2d.conv3_planes,
+            "conv4_planes": conv2d.conv4_planes}
+
+
+def drive(entries, label, want, fn):
+    """Run one path ``fn()`` with every launch counter set to 0 just
+    before it and read just after; fail if a kernel in ``want`` was not
+    launched; add the counts to the kernels' entries.  Returns what
+    ``fn`` returns."""
+    fns = counters()
+    for f in fns.values():
+        f.launches = 0
+    out = fn()
+    launches = {k: f.launches for k, f in fns.items()}
+    missing = sorted(k for k in want if launches[k] < 1)
+    if missing:
+        raise AssertionError(f"{label}: {missing} never launched "
+                             f"({launches})")
+    for k, v in launches.items():
+        entries[k]["launches"] += v
+        entries[k].setdefault("launches_by_path", {})[label] = v
+    print(f"[{label}] launches {launches}")
+    return out
+
+
+# the kernel each block runs on the per-plane path
+PLANE_KERNEL_OF = {"conv1": "conv1_layer", "conv2": "conv2_planes",
+                   "conv3": "conv3_planes", "conv4": "conv4_planes"}
+
+
+def per_plane_forwards(entries):
+    """Phase 6: ``cnn_forward_loop`` and the single-image ``cnn_forward``
+    of both committed plans, golden weights, every golden image."""
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.core import cnn, deploy
+    from repro_torch.runtime import load_plan
+
+    with np.load(GOLDEN) as golden:
+        for stem in (UNPINNED, PINNED):
+            plan = load_plan(PLANS / f"{stem}.json")
+            pcfg = deploy.plan_config(plan)
+            params = convert.params_from_numpy(
+                [golden[f"{stem}.w{i}"] for i in range(len(pcfg.layers))],
+                pcfg, "cuda")
+            gx, gy = golden[f"{stem}.x"], golden[f"{stem}.y"]
+            want = {PLANE_KERNEL_OF[b] for b in plan.block_names()}
+            for fwd in (cnn.cnn_forward_loop, cnn.cnn_forward):
+                def run():
+                    t0 = time.perf_counter()
+                    ys = np.stack([fwd(params, torch.from_numpy(x).cuda(),
+                                       pcfg, plan.block_names()).cpu()
+                                   .numpy() for x in gx])
+                    return ys, time.perf_counter() - t0
+                ys, dt = drive(entries, f"{fwd.__name__} {stem}", want, run)
+                if not np.array_equal(ys, gy):
+                    raise AssertionError(f"{stem}: {fwd.__name__} differs "
+                                         f"from the JAX golden")
+                print(f"  {fwd.__name__} {stem}: {len(gx)} images equal the "
+                      f"JAX golden, {dt * 1e3 / len(gx):.3f} ms per image")
+
+
+def plan_on_card(entries):
+    """Phase 7: the launcher's default path — the port's own sweep, a
+    v5e plan, ``validate_plan`` on the card, then serving from the plan.
+    Returns the numbers for the kernels line."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import allocate, cnn, deploy, synth
+    from repro_torch.launch import serve
+
+    args = serve.parse_args([
+        "--workload", "cnn", "--device", "v5e", "--requests",
+        str(SERVED_FROM_OWN_PLAN), "--max-batch", str(MAX_BATCH),
+        "--torch-device", "cuda"])
+
+    def run():
+        t0 = time.perf_counter()
+        rows = synth.run_sweep(force=True)
+        sweep_s = time.perf_counter() - t0
+        print(f"[plan] the port's own sweep: {len(rows)} design points in "
+              f"{sweep_s:.3f} s (op census on meta tensors, host CPU)")
+        cnn.clear_fitted_model_cache()
+        plan = serve.cnn_plan(args)
+        print(f"[plan] {plan.to_json(indent=None)}")
+        cfg = plan.cnn
+        pins = tuple(dataclasses.replace(s, block=PINNED_PLAN_PINS[i])
+                     for i, s in enumerate(cfg.layers))
+        pinned = deploy.plan_deployment(
+            dataclasses.replace(cfg, layers=pins), cnn.fitted_block_models(),
+            allocate.get_device("v5e"), target=0.8, on_infeasible="fallback")
+        vals = {}
+        for label, p in (("v5e", plan), ("v5e pinned", pinned)):
+            t0 = time.perf_counter()
+            val = deploy.validate_plan(p, p.cnn, device="cuda")
+            mape = {r: m["mape_pct"] for r, m in val.metrics.items()}
+            vals[label] = {"blocks": p.block_names(), "bits": p.bits(),
+                           "bit_exact": val.bit_exact, "mape_pct": mape,
+                           "quant_error": val.quant_error,
+                           "seconds": time.perf_counter() - t0}
+            print(f"[plan] validate_plan {label} "
+                  f"{list(zip(p.block_names(), p.bits()))}: bit_exact="
+                  f"{val.bit_exact} mape_pct={mape}")
+            if not val.bit_exact:
+                raise AssertionError(f"{label}: the forward on the card "
+                                     f"differs from cnn_forward_ref")
+        # the reference's gate holds the planned (unpinned) plan; the
+        # pinned variant's Conv1 layer is reported, not gated
+        bad = {r: m for r, m in vals["v5e"]["mape_pct"].items() if m >= 2.0}
+        if bad:
+            raise AssertionError(f"v5e plan: MAPE >= 2 % on {bad}")
+        engine, reqs, dt = serve.run_cnn(args)
+        xs = torch.from_numpy(np.stack([r.image for r in reqs]))
+        ys = np.stack([r.output for r in reqs])
+        y_ref = cnn.cnn_forward_ref([w.cpu() for w in engine.compiled.params],
+                                    xs, engine.cfg).numpy()
+        if not (all(r.done for r in reqs) and np.array_equal(ys, y_ref)):
+            raise AssertionError("serving the own plan: outputs differ from "
+                                 "cnn_forward_ref on the CPU")
+        print(f"[plan] served {len(reqs)} requests from the own plan; "
+              f"outputs equal cnn_forward_ref (CPU)")
+        return {"sweep_seconds": sweep_s, "plan": plan.block_names(),
+                "bits": plan.bits(), "validate": vals}
+
+    want = {"conv1_layer", "conv2_planes", "conv3_planes", "conv4_planes",
+            "fused_dot_layer"}
+    return drive(entries, "plan on the card", want, run)
+
+
 def main() -> int:
     try:
         import torch
@@ -418,6 +747,10 @@ def main() -> int:
         print(f"[env] card: {smi}")
         print(f"[env] torch {torch.__version__}, CUDA "
               f"{torch.version.cuda}, nvcc: {nvcc_v}")
+        print(f"[env] int32 CUDA-core rate {int32_rate():.6e} op/s "
+              f"({torch.cuda.get_device_properties(0).multi_processor_count}"
+              f" SMs x {INT32_LANES_PER_SM} lanes x 2 x the maximum SM "
+              f"clock)")
 
         t0 = time.perf_counter()
         reports = build.build()
@@ -430,15 +763,20 @@ def main() -> int:
                     print(f"  {name}: {line.strip()}")
 
         entries = check_kernels()
+        entries.update(check_plane_kernels())
         rates, step_ms = serve_plans(entries)
         prof = serve_profile(PINNED, step_ms[PINNED])
+        per_plane_forwards(entries)
+        planned = plan_on_card(entries)
         keys = ("name", "route", "source", "replaces", "launches",
                 "max_abs_err", "equal", "ms", "device_ms", "plain_ms",
-                "bound_ms", "bound_by", "library_ms", "shape", "cases")
+                "bound_ms", "bound_by", "library_ms", "shape",
+                "launches_by_path", "cases")
         line = {"kernels": [{k: e[k] for k in keys}
                             for e in entries.values()],
                 "images_per_s": rates, "ms_per_step": step_ms,
-                "serve_profile": prof, "card": smi}
+                "serve_profile": prof, "plan_on_card": planned,
+                "int32_ops_per_s": int32_rate(), "card": smi}
         print(json.dumps(line))
         print(smi)
     except Exception:                  # noqa: BLE001 — report and fail

@@ -2,18 +2,23 @@
 
 Port of ``repro.blocks.base``.  A block carries the paper's metadata
 (``name``, ``convs_per_step``, ``dual_output``, ``weight_shape``,
-``supports``, ``packed_ok``) and runs a whole CNN layer through
-``apply_batched``: x (N, H, W, in_ch) — or one (H, W, in_ch) image — and
-w (out_ch, in_ch, 3, 3) give the exact int32 accumulator (N, out_ch, H,
-W) = Σ_ic conv(x[..., ic], w[oc, ic]).
+``supports``, ``packed_ok``) and runs:
 
-Where the reference's default ``batched_layer`` vmaps the block's
-per-plane Pallas body over every (image, out_ch, in_ch) plane, the port's
-runs the block's whole-layer kernel (``layer_kernel``).  The dot blocks
-override ``batched_layer`` as in the reference, with ``fused_dot_layer``
-and ``packed_dot_layer`` — CUDA kernels here, each with its plain
-PyTorch version beside it.  The per-plane ``apply``/``reference`` wait
-for the per-plane kernels (conv2/3/4).
+* ``apply`` — one (H, W) plane through the block's plane kernel
+  (``plane_kernel``: K3–K6 on the card), ``reference`` its oracle;
+* ``apply_batched`` on one (H, W, in_ch) image — every (out_ch, in_ch)
+  plane (channel pairs for dual blocks) in one plane-kernel launch, then
+  the sum over in_ch, as the reference's vmapped ``_apply_batched``;
+* ``apply_batched`` on an (N, H, W, in_ch) batch — the serving path:
+  ``batched_layer``, by default the block's whole-layer kernel
+  (``layer_kernel``); the dot blocks override it, as in the reference,
+  with ``fused_dot_layer`` and ``packed_dot_layer`` — CUDA kernels here,
+  each with its plain PyTorch version beside it.
+
+Every path returns the exact int32 accumulator, Σ_ic conv(x[..., ic],
+w[oc, ic]).  ``kernel_body`` hands the census (``core.census``) the
+block's plain row-tile body, the counterpart of the reference's Pallas
+body.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import conv2d
+from repro_torch.kernels import conv2d, ref
 
 BIT_RANGE = (3, 16)     # sweep-supported data/coeff bit widths (paper §3.2)
 
@@ -63,6 +68,18 @@ class ConvBlock:
 
     # -- execution ----------------------------------------------------
 
+    def kernel_body(self, *, data_bits: int, coeff_bits: int):
+        """The plain row-tile body (subclasses): a callable (xpad tile,
+        weights) → int32 tile, the counterpart of the reference's Pallas
+        body, which the census counts."""
+        raise NotImplementedError(f"{self.name}: no kernel body")
+
+    def plane_kernel(self, x, w, *, data_bits: int, coeff_bits: int):
+        """The block's plane kernel (subclasses): x (P, H, W), w (P,
+        *weight_shape()) → int32 (P, H, W), or (P, 2, H, W) for dual
+        blocks."""
+        raise NotImplementedError(f"{self.name}: no plane kernel")
+
     def layer_kernel(self, x, w, *, data_bits: int, coeff_bits: int):
         """The block's whole-layer kernel (subclasses)."""
         raise NotImplementedError(
@@ -70,6 +87,41 @@ class ConvBlock:
 
     def _validate(self, x, w, data_bits: int, coeff_bits: int,
                   tile_h: int) -> None:
+        """The plane checks of the reference's ``apply``, with its
+        messages."""
+        if not self.supports(data_bits, coeff_bits):
+            raise ValueError(
+                f"{self.name}: unsupported design point "
+                f"(data_bits={data_bits}, coeff_bits={coeff_bits})")
+        want = self.weight_shape(coeff_bits)
+        if tuple(w.shape) != want:
+            raise ValueError(
+                f"{self.name}: weight shape {tuple(w.shape)} != {want}")
+        if x.shape[0] % tile_h:
+            raise ValueError(
+                f"{self.name}: image height {x.shape[0]} not divisible by "
+                f"tile_h={tile_h}")
+
+    def apply(self, x, w, *, data_bits: int, coeff_bits: int,
+              tile_h: int = 16):
+        """One plane through the block's plane kernel.  x: (H, W)
+        container int; w: ``weight_shape()``.  Returns the int32
+        'same'-padded conv output — (H, W), or (2, H, W) for dual-output
+        blocks."""
+        self._validate(x, w, data_bits, coeff_bits, tile_h)
+        return self.plane_kernel(x[None].contiguous(), w[None].contiguous(),
+                                 data_bits=data_bits,
+                                 coeff_bits=coeff_bits)[0]
+
+    def reference(self, x, w):
+        """Plain oracle for ``apply`` (exact integer arithmetic)."""
+        if self.dual_output:
+            return torch.stack([ref.conv2d_3x3_ref(x, w[0]),
+                                ref.conv2d_3x3_ref(x, w[1])])
+        return ref.conv2d_3x3_ref(x, w)
+
+    def _validate_layer(self, x, w, data_bits: int, coeff_bits: int,
+                        tile_h: int) -> None:
         """The layer checks of the reference's ``apply_batched``, with its
         messages."""
         if x.ndim not in (3, 4):
@@ -97,12 +149,41 @@ class ConvBlock:
         the exact int32 accumulator (out_ch, H, W) — or (N, out_ch, H,
         W); the caller applies its own rescale/activation.  ``tile_h`` is
         the reference's row tile: the image height must divide by it."""
-        self._validate(x, w, data_bits, coeff_bits, tile_h)
+        self._validate_layer(x, w, data_bits, coeff_bits, tile_h)
         if x.ndim == 4:
             return self.batched_layer(x, w, data_bits=data_bits,
                                       coeff_bits=coeff_bits, tile_h=tile_h)
-        return self.batched_layer(x[None], w, data_bits=data_bits,
-                                  coeff_bits=coeff_bits, tile_h=tile_h)[0]
+        return self.plane_layer(x, w, data_bits=data_bits,
+                                coeff_bits=coeff_bits)
+
+    def plane_layer(self, x, w, *, data_bits: int, coeff_bits: int):
+        """One image's layer on the plane kernel, as the reference's
+        ``_apply_batched``: x (H, W, in_ch), w (out_ch, in_ch, 3, 3) →
+        int32 (out_ch, H, W).  Every (out_ch, in_ch) plane — for dual
+        blocks every (channel pair, in_ch) plane, an odd last channel
+        paired with a copy of itself and the twin discarded — goes
+        through one plane-kernel launch, then the int32 sum over
+        in_ch."""
+        h, wd, ic = x.shape
+        oc = w.shape[0]
+        kw = dict(data_bits=data_bits, coeff_bits=coeff_bits)
+        if not self.dual_output:
+            xs = x.permute(2, 0, 1).expand(oc, ic, h, wd)
+            y = self.plane_kernel(
+                xs.reshape(oc * ic, h, wd).contiguous(),
+                w.reshape(oc * ic, 3, 3).contiguous(), **kw)
+            return conv2d.wrap_int(y.reshape(oc, ic, h, wd).sum(dim=1)) \
+                .to(torch.int32)
+        if oc % 2:
+            w = torch.cat([w, w[-1:]], dim=0)
+        pairs = w.shape[0] // 2
+        wp = w.reshape(pairs, 2, ic, 3, 3).transpose(1, 2)  # (p, ic, 2, ..)
+        xs = x.permute(2, 0, 1).expand(pairs, ic, h, wd)
+        y = self.plane_kernel(xs.reshape(pairs * ic, h, wd).contiguous(),
+                              wp.reshape(pairs * ic, 2, 3, 3).contiguous(),
+                              **kw)
+        acc = conv2d.wrap_int(y.reshape(pairs, ic, 2, h, wd).sum(dim=1))
+        return acc.reshape(pairs * 2, h, wd)[:oc].to(torch.int32)
 
     def batched_layer(self, x, w, *, data_bits: int, coeff_bits: int,
                       tile_h: int = 16):
@@ -163,9 +244,7 @@ def fused_dot_layer(x, w, *, data_bits: int, coeff_bits: int):
     if x.device.type == "cpu":
         return fused_dot_layer_plain(x, w, data_bits=data_bits,
                                      coeff_bits=coeff_bits)
-    if conv2d._dot_dtype(data_bits, coeff_bits) == torch.int8:
-        # the reference narrows both operands to its int8 dot dtype
-        x, w = x.to(torch.int8), w.to(torch.int8)
+    x, w = conv2d.narrow_to_dot_dtype(x, w, data_bits, coeff_bits)
     return conv2d.launch_layer(fused_dot_layer, _FUSED_ARGTYPES, x, w,
                                w.shape[0], w.numel())
 

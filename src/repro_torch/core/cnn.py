@@ -1,8 +1,10 @@
 """Fixed-point CNN built on the convolution-block library.
 
 Port of ``repro.core.cnn``: the layer specs and config, the quickstart
-network, the weight draw, the per-layer requantize, the batched forward
-(each layer one ``ConvBlock.apply_batched``) and the integer oracle.
+network, model-driven block selection (``fitted_block_models``,
+``choose_blocks``), the weight draw, the per-layer requantize, the
+batched forward (each layer one ``ConvBlock.apply_batched``), the
+per-plane baseline ``cnn_forward_loop`` and the integer oracle.
 
 Numerics: power-of-two fixed-point.  Activations and weights are
 quantized to (data_bits, coeff_bits); accumulation is exact int32; each
@@ -13,11 +15,12 @@ range (ReLU folded into the clamp).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.blocks import BIT_RANGE, BlockLike, get_block
+from repro_torch.blocks import BIT_RANGE, BlockLike, ConvBlock, get_block
+from repro_torch.core import allocate, synth
 from repro_torch.kernels import conv2d, ops, ref
 
 
@@ -61,6 +64,48 @@ def quickstart_cnn_config() -> CNNConfig:
         ConvLayerSpec(8, 8, data_bits=8, coeff_bits=6),
         ConvLayerSpec(8, 4, data_bits=6, coeff_bits=4),
     ), img_h=32, img_w=128)
+
+
+# fitted-model memo for the default sweep, keyed on the sweep schema
+# version: repeated planning/serving calls share ONE sweep + fit per
+# process; a SWEEP_SCHEMA_VERSION bump naturally invalidates the entry
+_FITTED_MODELS: Dict[str, allocate.BlockModels] = {}
+
+
+def fitted_block_models(rows=None) -> allocate.BlockModels:
+    """``BlockModels`` for the block library.  Explicit ``rows`` are
+    fitted directly (caller owns the sweep); ``rows=None`` serves the
+    process-wide memoized fit of the default sweep (``synth.run_sweep``,
+    cached under ``build/repro_torch/``)."""
+    if rows is not None:
+        return allocate.BlockModels.fit(rows)
+    key = synth.SWEEP_SCHEMA_VERSION
+    if key not in _FITTED_MODELS:
+        _FITTED_MODELS[key] = allocate.BlockModels.fit(synth.run_sweep())
+    return _FITTED_MODELS[key]
+
+
+def clear_fitted_model_cache() -> None:
+    """Drop the memoized default-sweep fit (tests / custom registries)."""
+    _FITTED_MODELS.clear()
+
+
+def choose_blocks(cfg: CNNConfig, rows=None,
+                  budgets=None) -> List[ConvBlock]:
+    """Model-driven block selection (paper §4.2), a thin wrapper over
+    the deployment planner (``repro_torch.core.deploy``): each layer
+    gets the block the fitted models pick under the device budget at
+    the layer's spec bits.  An explicit ``ConvLayerSpec.block`` wins
+    unconditionally, and selection never fails: a network that
+    overflows the device falls back to the least-demanding block per
+    overflowing layer instead of raising.  Use
+    ``deploy.plan_deployment`` directly for strict budget enforcement,
+    precision search and the full plan."""
+    from repro_torch.core import deploy
+    bm = fitted_block_models(rows)
+    plan = deploy.plan_deployment(cfg, bm, budgets, target=0.8,
+                                  on_infeasible="fallback")
+    return [get_block(a.block) for a in plan.layers]
 
 
 def init_cnn_float(generator: torch.Generator, cfg: CNNConfig
@@ -110,6 +155,38 @@ def cnn_forward(params, x, cfg: CNNConfig, blocks: Sequence[BlockLike]):
         acc = get_block(block).apply_batched(
             act, w, data_bits=spec.data_bits, coeff_bits=spec.coeff_bits)
         act = _requantize(acc, spec)
+    return act
+
+
+def cnn_forward_loop(params, x, cfg: CNNConfig,
+                     blocks: Sequence[BlockLike]):
+    """The per-plane baseline: one ``ConvBlock.apply`` — one plane-kernel
+    launch — per (out_ch, in_ch) plane, or per (channel pair, in_ch)
+    plane for dual blocks.  x: one (H, W, C_in) image on the device of
+    ``params``; returns (H, W, C_out).  Kept as the reference keeps it,
+    for the batched-vs-loop comparison and as a cross-check; prefer
+    ``cnn_forward``."""
+    act = x
+    for spec, w, block in zip(cfg.layers, params, blocks):
+        blk = get_block(block)
+        h, wd, cin = act.shape
+        acc = torch.zeros((spec.out_channels, h, wd), dtype=torch.int64,
+                          device=act.device)
+        kw = dict(data_bits=spec.data_bits, coeff_bits=spec.coeff_bits)
+        step = 2 if blk.dual_output else 1
+        for oc in range(0, spec.out_channels, step):
+            for ic in range(cin):
+                x2d = act[:, :, ic]
+                if blk.dual_output:
+                    oc2 = min(oc + 1, spec.out_channels - 1)
+                    y = blk.apply(x2d, torch.stack([w[oc, ic], w[oc2, ic]]),
+                                  **kw)
+                    acc[oc] += y[0]
+                    if oc2 != oc:
+                        acc[oc2] += y[1]
+                else:
+                    acc[oc] += blk.apply(x2d, w[oc, ic], **kw)
+        act = _requantize(conv2d.wrap_int(acc).to(torch.int32), spec)
     return act
 
 

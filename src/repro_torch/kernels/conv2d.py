@@ -1,15 +1,24 @@
-"""Integer helpers of the convolution blocks, and the Conv1 layer kernel.
+"""Integer helpers of the convolution blocks, the Conv1 layer kernel
+and the per-plane kernels of Conv2, Conv3 and Conv4.
 
 Port of ``repro.kernels.conv2d``.  The helpers keep the reference's
 names and rules (containers, packing limit, accumulator and dot widths).
-The TPU's per-plane Pallas bodies become whole-layer kernels here:
-``conv1_layer`` replaces ``conv1_kernel`` as ``ConvBlock.batched_layer``
-drives it; the per-plane ``conv2/3/4_kernel`` are not ported yet.
 
-Every layer kernel has a plain PyTorch version beside it, which follows
-the kernel's integer widths.  A wrapper runs the plain version for a
-tensor on the CPU and launches the CUDA kernel for a tensor on the card
-(or raises); ``<wrapper>.launches`` counts the launches.
+* ``conv1_layer`` replaces ``conv1_kernel`` as ``ConvBlock.batched_layer``
+  drives it: one launch for a whole layer.
+* ``conv2_planes``, ``conv3_planes`` and ``conv4_planes`` replace
+  ``conv2_kernel``, ``conv3_kernel`` and ``conv4_kernel`` as the
+  reference's vmapped ``pallas_call`` runs them: a batch of P planes,
+  each with its own weights, in one launch.
+
+Every kernel has a plain PyTorch version beside it, which follows the
+kernel's integer widths.  The per-plane plain versions follow the Pallas
+bodies row tile by row tile (``conv1_tile`` … ``conv4_tile`` over
+``run_plane_tiles``'s grid), in the reference's dtypes, and contract
+with ``int_dot``; ``core.census`` counts the same tile bodies.  A
+wrapper runs the plain version for a tensor on the CPU and launches the
+CUDA kernel for a tensor on the card (or raises); ``<wrapper>.launches``
+counts the launches.
 """
 
 from __future__ import annotations
@@ -56,6 +65,14 @@ def _dot_dtype(data_bits: int, coeff_bits: int) -> torch.dtype:
         else torch.int32
 
 
+def narrow_to_dot_dtype(x, w, data_bits: int, coeff_bits: int):
+    """The reference's dots narrow both operands to int8 where
+    ``_dot_dtype`` is int8; the kernels take the narrowed containers."""
+    if _dot_dtype(data_bits, coeff_bits) == torch.int8:
+        return x.to(torch.int8), w.to(torch.int8)
+    return x, w
+
+
 def wrap_int(t: torch.Tensor, bits: int = 32) -> torch.Tensor:
     """The ``bits``-bit two's-complement value of an int64 tensor, as
     int64: what an int16/int32 accumulator of the reference holds after
@@ -72,6 +89,37 @@ def _taps(xpad: torch.Tensor, h: int, w: int):
             for di in range(3) for dj in range(3)]
 
 
+def _im2col(xpad: torch.Tensor, th: int, w: int) -> torch.Tensor:
+    """(…, th+2, w+2) padded tile → (…, th·w, 9) patches."""
+    return torch.stack(_taps(xpad, th, w), dim=-1) \
+        .reshape(*xpad.shape[:-2], th * w, 9)
+
+
+@torch.library.custom_op("repro_torch::int_dot", mutates_args=())
+def int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched integer dot a (…, m, k) · b (…, k, n) → int32 (…, m, n),
+    exact modulo 2^32: the reference's ``dot_general`` with
+    ``preferred_element_type=int32``.  One operator, so that the census
+    sees a dot in its operands' types (``mxu_flops``, ``mxu_cost``), not
+    the int64 products this plain form computes it with."""
+    prod = a.to(torch.int64).unsqueeze(-1) * b.to(torch.int64).unsqueeze(-3)
+    return wrap_int(prod.sum(dim=-2)).to(torch.int32)
+
+
+@int_dot.register_fake
+def _int_dot_shape(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a.new_empty((*a.shape[:-1], b.shape[-1]), dtype=torch.int32)
+
+
+def _check_containers(name: str, x: torch.Tensor, w: torch.Tensor) -> None:
+    if x.dtype not in CONTAINERS or w.dtype not in CONTAINERS:
+        raise ValueError(
+            f"{name}: x and w must be int8 or int16 containers, got "
+            f"{x.dtype} and {w.dtype}")
+    if x.device != w.device:
+        raise ValueError(f"{name}: x on {x.device} but w on {w.device}")
+
+
 def check_layer_operands(name: str, x: torch.Tensor, w: torch.Tensor
                          ) -> None:
     """Shape, dtype and device checks shared by the layer kernels:
@@ -82,12 +130,20 @@ def check_layer_operands(name: str, x: torch.Tensor, w: torch.Tensor
         raise ValueError(
             f"{name}: expected x (N, H, W, ic) and w (oc, ic, 3, 3), got "
             f"{tuple(x.shape)} and {tuple(w.shape)}")
-    if x.dtype not in CONTAINERS or w.dtype not in CONTAINERS:
+    _check_containers(name, x, w)
+
+
+def _check_launch(name: str, x: torch.Tensor, w: torch.Tensor) -> None:
+    """What every kernel launch needs of its operands: on the current
+    card, contiguous."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for a tensor on {x.device}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError(f"{name}: x and w must be contiguous")
+    if x.device.index != torch.cuda.current_device():
         raise ValueError(
-            f"{name}: x and w must be int8 or int16 containers, got "
-            f"{x.dtype} and {w.dtype}")
-    if x.device != w.device:
-        raise ValueError(f"{name}: x on {x.device} but w on {w.device}")
+            f"{name}: x is on {x.device} but the current device is "
+            f"cuda:{torch.cuda.current_device()}")
 
 
 def launch_layer(wrapper, argtypes, x: torch.Tensor, w: torch.Tensor,
@@ -99,14 +155,7 @@ def launch_layer(wrapper, argtypes, x: torch.Tensor, w: torch.Tensor,
     does not take and on any launch error; never falls back.  An empty
     batch has nothing to compute and launches nothing."""
     name = wrapper.__name__
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for a tensor on {x.device}")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError(f"{name}: x and w must be contiguous")
-    if x.device.index != torch.cuda.current_device():
-        raise ValueError(
-            f"{name}: x is on {x.device} but the current device is "
-            f"cuda:{torch.cuda.current_device()}")
+    _check_launch(name, x, w)
     if 4 * weight_words > SMEM_WEIGHT_BYTES:
         raise ValueError(
             f"{name}: {weight_words} staged weight words exceed the "
@@ -173,3 +222,226 @@ def conv1_layer(x: torch.Tensor, w: torch.Tensor, *, data_bits: int,
 
 
 conv1_layer.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# per-plane kernels: the Pallas bodies conv2/3/4_kernel over P planes
+# ---------------------------------------------------------------------------
+
+def conv1_tile(xpad: torch.Tensor, wk: torch.Tensor, *, data_bits: int,
+               coeff_bits: int) -> torch.Tensor:
+    """Body of ``conv1_kernel`` on one padded row tile: xpad (…, th+2,
+    w+2) container int, wk (…, 3, 3) → int32 (…, th, w).  Per tap,
+    ``coeff_bits`` masked shift-adds by the bits of |w|, then w's sign,
+    in the accumulator dtype ``_acc_dtype`` picks (int16 only where no
+    sum can wrap; int32 wraps as the reference's does).  The plane
+    kernel of Conv1 is ``conv1_layer``, the same function."""
+    adt = _acc_dtype(data_bits, coeff_bits)
+    th, w = xpad.shape[-2] - 2, xpad.shape[-1] - 2
+    taps = _taps(xpad.to(adt), th, w)
+    wk = wk.to(adt)
+    one = torch.ones((), dtype=adt, device=xpad.device)
+    acc = torch.zeros((*xpad.shape[:-2], th, w), dtype=adt,
+                      device=xpad.device)
+    for t, tap in enumerate(taps):
+        c = wk[..., t // 3, t % 3, None, None]
+        mag = c.abs()
+        sign = torch.where(c < 0, -one, one)
+        part = torch.zeros_like(acc)
+        for b in range(coeff_bits):          # unrolled: ops ∝ coeff_bits
+            part = part + torch.where(((mag >> b) & 1) == 1, tap << b,
+                                      torch.zeros_like(tap))
+        acc = acc + sign * part
+    return acc.to(torch.int32)
+
+
+def conv2_tile(xpad: torch.Tensor, wk: torch.Tensor, *, data_bits: int,
+               coeff_bits: int) -> torch.Tensor:
+    """Body of ``conv2_kernel``: (th·w, 9) im2col · the 9 taps in
+    ``_dot_dtype``.  xpad (…, th+2, w+2), wk (…, 3, 3) → int32 (…, th,
+    w)."""
+    ddt = _dot_dtype(data_bits, coeff_bits)
+    th, w = xpad.shape[-2] - 2, xpad.shape[-1] - 2
+    patches = _im2col(xpad.to(ddt), th, w)
+    y = int_dot(patches, wk.to(ddt).reshape(*wk.shape[:-2], 9, 1))
+    return y.reshape(*xpad.shape[:-2], th, w)
+
+
+def conv3_tile(xpad: torch.Tensor, wk: torch.Tensor, *, data_bits: int,
+               coeff_bits: int) -> torch.Tensor:
+    """Body of ``conv3_kernel``: xpad (…, th+2, w+2), wk (…, 2, 3, 3) →
+    int32 (…, 2, th, w).  Inside the packing regime one int32 dot with
+    the operand (w_hi << S) + w_lo, S = d+c+3, then the signed field
+    split; outside it two dots in ``_dot_dtype``."""
+    th, w = xpad.shape[-2] - 2, xpad.shape[-1] - 2
+    lead = xpad.shape[:-2]
+    patches = _im2col(xpad.to(torch.int32), th, w)
+    wk = wk.to(torch.int32).reshape(*wk.shape[:-3], 2, 9)
+    if conv3_packed_ok(data_bits, coeff_bits):
+        s = _pack_shift(data_bits, coeff_bits)
+        packed = (wk[..., 0, :] << s) + wk[..., 1, :]
+        acc = int_dot(patches, packed[..., None]).reshape(*lead, th, w)
+        half = 1 << (s - 1)
+        lo = ((acc + half) & ((1 << s) - 1)) - half      # signed low field
+        hi = (acc - lo) >> s
+        return torch.stack([hi, lo], dim=-3)
+    # packing infeasible → two dots (degenerates to Conv4)
+    ddt = _dot_dtype(data_bits, coeff_bits)
+    return torch.stack([
+        int_dot(patches.to(ddt), wk[..., j, :, None].to(ddt))
+        .reshape(*lead, th, w) for j in range(2)], dim=-3)
+
+
+def conv4_tile(xpad: torch.Tensor, wk: torch.Tensor, *, data_bits: int,
+               coeff_bits: int) -> torch.Tensor:
+    """Body of ``conv4_kernel``: two independent 9-tap dots in
+    ``_dot_dtype``.  xpad (…, th+2, w+2), wk (…, 2, 3, 3) → int32 (…, 2,
+    th, w)."""
+    ddt = _dot_dtype(data_bits, coeff_bits)
+    th, w = xpad.shape[-2] - 2, xpad.shape[-1] - 2
+    patches = _im2col(xpad.to(ddt), th, w)
+    wk = wk.to(ddt).reshape(*wk.shape[:-3], 2, 9)
+    return torch.stack([
+        int_dot(patches, wk[..., j, :, None]).reshape(*xpad.shape[:-2], th, w)
+        for j in range(2)], dim=-3)
+
+
+# rows of the plain versions' row tiles (the reference's default tile_h;
+# the result does not depend on it)
+TILE_H = 16
+
+
+def run_plane_tiles(tile, x: torch.Tensor, wk: torch.Tensor, *,
+                    data_bits: int, coeff_bits: int) -> torch.Tensor:
+    """The reference's ``run_block_kernel`` grid in plain form: pad the
+    (…, H, W) planes once, run ``tile`` on each row tile of ``TILE_H``
+    rows (a shorter last one where H does not divide), and join the
+    tiles along H."""
+    h = x.shape[-2]
+    xpad = F.pad(x, (1, 1, 1, 1))
+    return torch.cat([
+        tile(xpad[..., r:r + min(TILE_H, h - r) + 2, :], wk,
+             data_bits=data_bits, coeff_bits=coeff_bits)
+        for r in range(0, h, TILE_H)], dim=-2)
+
+
+def check_plane_operands(name: str, x: torch.Tensor, w: torch.Tensor,
+                         n_out: int) -> None:
+    """Shape, dtype and device checks of the plane kernels: x (P, H, W)
+    and w (P, 3, 3) — or (P, 2, 3, 3) for two outputs — in int8/int16
+    containers, on one device."""
+    want = (2, 3, 3) if n_out == 2 else (3, 3)
+    if x.ndim != 3 or tuple(w.shape[1:]) != want \
+            or w.shape[0] != x.shape[0]:
+        raise ValueError(
+            f"{name}: expected x (P, H, W) and w (P, "
+            f"{', '.join(map(str, want))}), got {tuple(x.shape)} and "
+            f"{tuple(w.shape)}")
+    _check_containers(name, x, w)
+
+
+def launch_planes(wrapper, argtypes, x: torch.Tensor, w: torch.Tensor,
+                  n_out: int, *extra: int) -> torch.Tensor:
+    """Launch the plane kernel of ``wrapper`` on x's device and current
+    stream, add one to ``wrapper.launches``, and return the int32
+    output (P, H, W), or (P, 2, H, W) for two outputs.  Raises on what
+    the kernel does not take and on any launch error; never falls back.
+    An empty output launches nothing."""
+    name = wrapper.__name__
+    _check_launch(name, x, w)
+    p, h, wd = x.shape
+    shape = (p, 2, h, wd) if n_out == 2 else (p, h, wd)
+    out = torch.empty(shape, dtype=torch.int32, device=x.device)
+    if out.numel() == 0:
+        return out
+    fn = build.kernel(name, argtypes)
+    err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+             int(x.dtype == torch.int16), int(w.dtype == torch.int16),
+             p, h, wd, *extra,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(name, err)
+    wrapper.launches += 1
+    return out
+
+
+# x, w, out, x_int16, w_int16, p, h, w, stream
+_PLANE_ARGTYPES = (_P, _P, _P) + (_I,) * 5 + (_P,)
+# x, w, out, x_int16, w_int16, p, h, w, shift (0: two dots), stream
+_CONV3_ARGTYPES = (_P, _P, _P) + (_I,) * 6 + (_P,)
+
+
+def conv2_planes_plain(x, w, *, data_bits: int,
+                       coeff_bits: int) -> torch.Tensor:
+    """Plain version of ``conv2_planes``: ``conv2_tile`` over the row
+    tiles of every plane."""
+    return run_plane_tiles(conv2_tile, x, w, data_bits=data_bits,
+                           coeff_bits=coeff_bits)
+
+
+def conv2_planes(x, w, *, data_bits: int, coeff_bits: int) -> torch.Tensor:
+    """Conv2 on P planes, each with its own weights: x (P, H, W)
+    container int, w (P, 3, 3) → exact int32 (P, H, W).  One CUDA launch
+    on the card (``csrc/conv2_planes.cu``); the plain version on the
+    CPU."""
+    check_plane_operands("conv2_planes", x, w, 1)
+    if x.device.type == "cpu":
+        return conv2_planes_plain(x, w, data_bits=data_bits,
+                                  coeff_bits=coeff_bits)
+    x, w = narrow_to_dot_dtype(x, w, data_bits, coeff_bits)
+    return launch_planes(conv2_planes, _PLANE_ARGTYPES, x, w, 1)
+
+
+conv2_planes.launches = 0
+
+
+def conv3_planes_plain(x, w, *, data_bits: int,
+                       coeff_bits: int) -> torch.Tensor:
+    """Plain version of ``conv3_planes``: ``conv3_tile`` over the row
+    tiles of every plane."""
+    return run_plane_tiles(conv3_tile, x, w, data_bits=data_bits,
+                           coeff_bits=coeff_bits)
+
+
+def conv3_planes(x, w, *, data_bits: int, coeff_bits: int) -> torch.Tensor:
+    """Conv3 on P planes: x (P, H, W) container int, w (P, 2, 3, 3) →
+    exact int32 (P, 2, H, W).  Inside the packing regime
+    (``conv3_packed_ok``) one dot per pixel with the packed operand and
+    the signed field split; outside it two dots.  One CUDA launch on the
+    card (``csrc/conv3_planes.cu``); the plain version on the CPU."""
+    check_plane_operands("conv3_planes", x, w, 2)
+    if x.device.type == "cpu":
+        return conv3_planes_plain(x, w, data_bits=data_bits,
+                                  coeff_bits=coeff_bits)
+    shift = 0
+    if conv3_packed_ok(data_bits, coeff_bits):
+        shift = _pack_shift(data_bits, coeff_bits)
+    else:
+        x, w = narrow_to_dot_dtype(x, w, data_bits, coeff_bits)
+    return launch_planes(conv3_planes, _CONV3_ARGTYPES, x, w, 2, shift)
+
+
+conv3_planes.launches = 0
+
+
+def conv4_planes_plain(x, w, *, data_bits: int,
+                       coeff_bits: int) -> torch.Tensor:
+    """Plain version of ``conv4_planes``: ``conv4_tile`` over the row
+    tiles of every plane."""
+    return run_plane_tiles(conv4_tile, x, w, data_bits=data_bits,
+                           coeff_bits=coeff_bits)
+
+
+def conv4_planes(x, w, *, data_bits: int, coeff_bits: int) -> torch.Tensor:
+    """Conv4 on P planes: two independent dots per pixel.  x (P, H, W)
+    container int, w (P, 2, 3, 3) → exact int32 (P, 2, H, W).  One CUDA
+    launch on the card (``csrc/conv4_planes.cu``); the plain version on
+    the CPU."""
+    check_plane_operands("conv4_planes", x, w, 2)
+    if x.device.type == "cpu":
+        return conv4_planes_plain(x, w, data_bits=data_bits,
+                                  coeff_bits=coeff_bits)
+    x, w = narrow_to_dot_dtype(x, w, data_bits, coeff_bits)
+    return launch_planes(conv4_planes, _PLANE_ARGTYPES, x, w, 2)
+
+
+conv4_planes.launches = 0

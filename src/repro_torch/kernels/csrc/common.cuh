@@ -1,9 +1,12 @@
-// Shared by the three layer kernels of the CNN serving path.
+// Shared by the layer kernels of the CNN serving path and the per-plane
+// kernels of the blocks.
 //
 // Layouts (the reference's public ones): activations x (N, H, W, IC)
 // channels-last in their int8/int16 container; weights w (OC, IC, 3, 3) in
-// theirs; the layer accumulator out (N, OC, H, W) int32.  Convolution is
-// 'same' zero-padded cross-correlation: tap t = 3*di + dj reads
+// theirs; the layer accumulator out (N, OC, H, W) int32.  The plane kernels
+// take P planes x (P, H, W), each with its own weights w (P, 3, 3) or
+// (P, 2, 3, 3), and write out (P, H, W) or (P, 2, H, W) int32.  Convolution
+// is 'same' zero-padded cross-correlation: tap t = 3*di + dj reads
 // x[row + di - 1, col + dj - 1].
 //
 // Every sum is taken in uint32_t and reinterpreted at the end: the
@@ -42,6 +45,24 @@ __device__ __forceinline__ uint32_t tap_at(const TX* __restrict__ xi, int row,
   if (r < 0 || r >= h || q < 0 || q >= wd) return 0u;
   return static_cast<uint32_t>(
       static_cast<int32_t>(xi[(static_cast<int64_t>(r) * wd + q) * ic + c]));
+}
+
+// The same for one (H, W) plane.
+template <typename TX>
+__device__ __forceinline__ uint32_t plane_tap(const TX* __restrict__ xp,
+                                              int row, int col, int t, int h,
+                                              int wd) {
+  const int r = row + t / 3 - 1;
+  const int q = col + t % 3 - 1;
+  if (r < 0 || r >= h || q < 0 || q >= wd) return 0u;
+  return static_cast<uint32_t>(
+      static_cast<int32_t>(xp[static_cast<int64_t>(r) * wd + q]));
+}
+
+// A weight taken modulo 2^32 after sign extension.
+template <typename TW>
+__device__ __forceinline__ uint32_t word(TW v) {
+  return static_cast<uint32_t>(static_cast<int32_t>(v));
 }
 
 }  // namespace repro

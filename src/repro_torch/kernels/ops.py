@@ -1,6 +1,14 @@
-"""Quantization helper.  Port of ``repro.kernels.ops.quantize_fixed``."""
+"""Quantization helper and the deprecated block shims.
+
+Port of ``repro.kernels.ops``: ``quantize_fixed``, and
+``conv_block``/``conv_block_ref``, which survive only as deprecated
+shims over the ``repro_torch.blocks`` registry — use
+``get_block(name).apply(...)`` / ``.reference(...)`` instead.
+"""
 
 from __future__ import annotations
+
+import warnings
 
 import torch
 
@@ -22,3 +30,31 @@ def quantize_fixed(x, bits: int, *, signed: bool = True) -> torch.Tensor:
     info = torch.iinfo(dtype)
     return torch.clamp(torch.round(x), max(lo, info.min),
                        min(hi, info.max)).to(dtype)
+
+
+def conv_block(block, x, w, *, data_bits, coeff_bits, tile_h=16):
+    """Deprecated string-dispatch shim; use
+    ``repro_torch.blocks.get_block(block).apply(...)``."""
+    warnings.warn(
+        "ops.conv_block is deprecated; use "
+        "repro.blocks.get_block(name).apply(...)",
+        DeprecationWarning, stacklevel=2)
+    from repro_torch.blocks import get_block
+    try:
+        blk = get_block(block)
+    except KeyError as e:       # preserve the seed contract (ValueError)
+        raise ValueError(f"unknown block {block!r}") from e
+    return blk.apply(x, w, data_bits=data_bits, coeff_bits=coeff_bits,
+                     tile_h=tile_h)
+
+
+def conv_block_ref(block, x, w, **kw):
+    """Deprecated shim; use
+    ``repro_torch.blocks.get_block(block).reference``."""
+    warnings.warn(
+        "ops.conv_block_ref is deprecated; use "
+        "repro.blocks.get_block(name).reference(...)",
+        DeprecationWarning, stacklevel=2)
+    del kw  # legacy signature compatibility
+    from repro_torch.blocks import get_block
+    return get_block(block).reference(x, w)

@@ -1,6 +1,6 @@
-"""Plain oracle of the convolution (exact integer arithmetic).
+"""Plain oracles of the convolution blocks (exact integer arithmetic).
 
-Port of ``repro.kernels.ref.conv2d_3x3_ref``.
+Port of ``repro.kernels.ref.conv2d_3x3_ref`` and ``conv_block_ref``.
 """
 
 from __future__ import annotations
@@ -23,3 +23,11 @@ def conv2d_3x3_ref(x: torch.Tensor, wk: torch.Tensor) -> torch.Tensor:
         for dj in range(3):
             acc = acc + xpad[di:di + h, dj:dj + w] * wk[di, dj]
     return wrap_int(acc).to(torch.int32)
+
+
+def conv_block_ref(block: str, x: torch.Tensor, wk: torch.Tensor, **_):
+    """Oracle for ``ops.conv_block``: conv1/conv2 → (H, W); conv3/conv4
+    → (2, H, W) (both coefficient planes)."""
+    if block in ("conv1", "conv2"):
+        return conv2d_3x3_ref(x, wk)
+    return torch.stack([conv2d_3x3_ref(x, wk[0]), conv2d_3x3_ref(x, wk[1])])

@@ -1,9 +1,10 @@
 """Card tests of the port: each CUDA kernel against its plain PyTorch
 version on the card (tolerance 0, exact integer arithmetic), the launch
-contract, and the whole slice on the card against the JAX reference's
-golden outputs.  Every test here carries the ``cuda`` marker and skips
-without a card; this file imports no JAX, so it also runs where JAX is
-not installed:
+contract, and both slices on the card against the JAX reference's
+golden outputs: the serving path (K1–K3) and the per-plane path
+(``ConvBlock.apply``, ``cnn_forward_loop``, ``validate_plan``: K3–K6).
+Every test here carries the ``cuda`` marker and skips without a card;
+this file imports no JAX, so it also runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
@@ -15,8 +16,9 @@ import pytest
 import torch
 
 from repro_torch import convert, runtime
-from repro_torch.blocks import base
-from repro_torch.core import cnn, deploy
+from repro_torch.blocks import base, get_block
+from repro_torch.core import allocate, cnn, deploy, synth
+from repro_torch.configs.paper_conv import REDUCED_SWEEP
 from repro_torch.kernels import conv2d
 from repro_torch.serve import CNNEngine, CNNServeConfig, ImageRequest
 from torch_parity import cuda, operands  # noqa: F401 (fixture)
@@ -24,6 +26,7 @@ from torch_parity import cuda, operands  # noqa: F401 (fixture)
 pytestmark = pytest.mark.cuda
 
 SRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+UNPINNED = SRC / "plans" / "quickstart_v5e.json"
 PINNED = SRC / "plans" / "quickstart_v5e_conv1_conv3.json"
 GOLDEN = SRC / "golden" / "quickstart_reference.npz"
 
@@ -123,3 +126,110 @@ def test_compiled_on_card_matches_cpu_at_every_bucket(cuda, n):
     ref = cnn.cnn_forward_ref([w.cpu() for w in model.params],
                               torch.from_numpy(xs), model.cfg)
     assert torch.equal(y.cpu(), ref)
+
+
+PLANE_KERNELS = {"conv2": (conv2d.conv2_planes, conv2d.conv2_planes_plain),
+                 "conv3": (conv2d.conv3_planes, conv2d.conv3_planes_plain),
+                 "conv4": (conv2d.conv4_planes, conv2d.conv4_planes_plain)}
+PLANE_CASES = [(k, d, c) for k in PLANE_KERNELS for d, c in POINTS
+               + [(6, 7), (7, 6), (5, 3)]]
+
+
+def plane_operands(rng, name, p, h, w, d, c, *, x_range=None):
+    lo, hi = x_range or (-(1 << (d - 1)), (1 << (d - 1)) - 1)
+    x = rng.integers(lo, hi + 1, (p, h, w))
+    x.reshape(-1)[:2] = (lo, hi)
+    wshape = (p, 3, 3) if name == "conv2" else (p, 2, 3, 3)
+    wk = rng.integers(-(1 << (c - 1)), 1 << (c - 1), wshape)
+    wk.reshape(-1)[:2] = (-(1 << (c - 1)), (1 << (c - 1)) - 1)
+    xdt = torch.int16 if x_range else conv2d.container_dtype(d)
+    return (torch.from_numpy(x).to(xdt),
+            torch.from_numpy(wk).to(conv2d.container_dtype(c)))
+
+
+@pytest.mark.parametrize("name,d,c", PLANE_CASES)
+def test_plane_kernel_matches_plain_on_card(cuda, name, d, c):
+    kernel, plain = PLANE_KERNELS[name]
+    rng = np.random.default_rng(500 * d + c)
+    x, w = plane_operands(rng, name, 33, 32, 40, d, c)
+    xc, wc = x.to(cuda), w.to(cuda)
+    before = kernel.launches
+    y = kernel(xc, wc, data_bits=d, coeff_bits=c)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    n_out = () if name == "conv2" else (2,)
+    assert y.dtype == torch.int32 and tuple(y.shape) == (33, *n_out, 32, 40)
+    assert torch.equal(y, plain(xc, wc, data_bits=d, coeff_bits=c))
+    assert torch.equal(y.cpu(), plain(x, w, data_bits=d, coeff_bits=c))
+
+
+@pytest.mark.parametrize("name", sorted(PLANE_KERNELS))
+def test_plane_kernel_container_range_int16_inputs_on_card(cuda, name):
+    kernel, plain = PLANE_KERNELS[name]
+    rng = np.random.default_rng(12)
+    for d, c in ((3, 8), (6, 6)):
+        x, w = plane_operands(rng, name, 4, 16, 24, d, c,
+                              x_range=(-32768, 32767))
+        xc, wc = x.to(cuda), w.to(cuda)
+        assert torch.equal(kernel(xc, wc, data_bits=d, coeff_bits=c),
+                           plain(xc, wc, data_bits=d, coeff_bits=c))
+
+
+@pytest.mark.parametrize("name", sorted(PLANE_KERNELS))
+def test_plane_kernel_refuses_what_it_does_not_take(cuda, name):
+    kernel, _ = PLANE_KERNELS[name]
+    x, w = plane_operands(np.random.default_rng(0), name, 2, 16, 8, 6, 4)
+    x, w = x.to(cuda), w.to(cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel(x.transpose(1, 2).contiguous().transpose(1, 2), w,
+               data_bits=6, coeff_bits=4)
+    with pytest.raises(ValueError, match="on cuda"):
+        kernel(x, w.cpu(), data_bits=6, coeff_bits=4)
+    before = kernel.launches
+    assert kernel(x[:0], w[:0], data_bits=6, coeff_bits=4).shape[0] == 0
+    assert kernel.launches == before
+
+
+def test_apply_on_card_matches_golden(cuda):
+    with np.load(GOLDEN) as z:
+        keys = sorted({k.rsplit(".", 1)[0] for k in z.files
+                       if k.startswith("apply.")})
+        assert len(keys) == 21
+        for key in keys:
+            _, block, bits = key.split(".")
+            d, c = (int(v) for v in bits[1:].split("c"))
+            y = get_block(block).apply(
+                torch.from_numpy(z[f"{key}.x"]).to(cuda),
+                torch.from_numpy(z[f"{key}.w"]).to(cuda), data_bits=d,
+                coeff_bits=c)
+            assert y.device.type == "cuda"
+            assert np.array_equal(y.cpu().numpy(), z[f"{key}.y"]), key
+
+
+@pytest.mark.parametrize("plan_path", [UNPINNED, PINNED],
+                         ids=lambda p: p.stem)
+def test_per_plane_forwards_on_card_match_golden(cuda, plan_path):
+    plan = runtime.load_plan(plan_path)
+    pcfg = deploy.plan_config(plan)
+    with np.load(GOLDEN) as z:
+        weights = [z[f"{plan_path.stem}.w{i}"] for i in range(3)]
+        gx, gy = z[f"{plan_path.stem}.x"], z[f"{plan_path.stem}.y"]
+    params = convert.params_from_numpy(weights, pcfg, cuda)
+    x = torch.from_numpy(gx[0]).to(cuda)
+    for fwd in (cnn.cnn_forward_loop, cnn.cnn_forward):
+        y = fwd(params, x, pcfg, plan.block_names())
+        assert np.array_equal(y.cpu().numpy(), gy[0]), fwd.__name__
+
+
+def test_validate_plan_on_card(cuda, tmp_path):
+    rows = synth.run_sweep(REDUCED_SWEEP, cache_path=tmp_path / "s.json")
+    cfg = cnn.quickstart_cnn_config()
+    plan = deploy.plan_deployment(cfg, cnn.fitted_block_models(rows),
+                                  allocate.get_device("v5e"), target=0.8,
+                                  on_infeasible="fallback")
+    before = conv2d.conv4_planes.launches
+    val = deploy.validate_plan(plan, cfg, device=cuda)
+    assert conv2d.conv4_planes.launches > before
+    assert val.bit_exact
+    for r, m in val.metrics.items():
+        assert m["mape_pct"] < 2.0, (r, m)

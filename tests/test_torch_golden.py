@@ -12,28 +12,48 @@ allocate.get_device("v5e"), target=0.8, on_infeasible="fallback")``):
 ``src/repro_torch/golden/quickstart_reference.npz`` holds, per plan, the
 reference runtime's weights (``init_cnn(PRNGKey(0), cfg)``), the 8
 images of ``CompiledCNN.sample_inputs(8, seed=0)`` and the reference
-``CompiledCNN``'s outputs for them: the card is held against the JAX
-package through this file, without importing it.
+``CompiledCNN``'s outputs for them; and, under ``apply.<block>.d<d>c<c>``,
+the reference's ``ConvBlock.apply`` (Pallas, interpret mode) of each
+block on one numpy-made 32×128 plane at the ``APPLY_POINTS`` (inputs
+``.x``, ``.w``, output ``.y``).
 
-Regenerate both (the planner runs the resource sweep, about a minute
-without its cache):
+``src/repro_torch/golden/synth_reference.json`` holds the reference's
+full ``SWEEP`` rows (784, its jaxpr census): the port's planner
+arithmetic is held to the reference's by feeding it these rows.
+
+The card is held against the JAX package through these files, without
+importing it.  Regenerate all of them (the reference's planner and this
+file run the reference's resource sweep, about a minute without its
+cache):
 
     PYTHONPATH=src python tests/test_torch_golden.py
 """
 
 import dataclasses
+import json
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from repro.core import allocate, deploy
+from repro.blocks import get_block
+from repro.core import allocate, deploy, synth
 from repro.core.cnn import fitted_block_models, quickstart_cnn_config
 from repro.runtime import CompiledCNN
 
 ROOT = Path(__file__).resolve().parents[1]
 PLANS = ROOT / "src" / "repro_torch" / "plans"
 GOLDEN = ROOT / "src" / "repro_torch" / "golden" / "quickstart_reference.npz"
+SYNTH_REFERENCE = ROOT / "src" / "repro_torch" / "golden" \
+    / "synth_reference.json"
+SYNTH_GOLDEN = ROOT / "tests" / "golden" / "synth_golden.json"
+
+# (block, data_bits, coeff_bits) of the golden ``apply`` outputs: bits 3
+# and 16, the 8/9-bit container, and conv3 either side of d+c = 12
+APPLY_POINTS = [(b, d, c) for b in ("conv1", "conv2", "conv3", "conv4")
+                for d, c in ((3, 3), (6, 6), (8, 6), (9, 8), (16, 16))] \
+    + [("conv3", 7, 6)]
 
 # plan file stem → the layer pins it was planned with
 PINS = {"quickstart_v5e": {},
@@ -60,10 +80,30 @@ def reference_plan(stem):
         allocate.get_device("v5e"), target=0.8, on_infeasible="fallback")
 
 
+def apply_operands(block, d, c, h=32, w=128):
+    """One plane over the full signed d-bit range and the block's weight
+    operand over the full c-bit range, extremes forced in, from a seed
+    of the design point."""
+    rng = np.random.default_rng(10_000 + 1000 * int(block[-1]) + 17 * d + c)
+    x = rng.integers(-(1 << (d - 1)), 1 << (d - 1), (h, w))
+    x.reshape(-1)[:2] = (-(1 << (d - 1)), (1 << (d - 1)) - 1)
+    wk = rng.integers(-(1 << (c - 1)), 1 << (c - 1),
+                      get_block(block).weight_shape(c))
+    wk.reshape(-1)[:2] = (-(1 << (c - 1)), (1 << (c - 1)) - 1)
+    return (x.astype(np.int8 if d <= 8 else np.int16),
+            wk.astype(np.int8 if c <= 8 else np.int16))
+
+
 def reference_golden(plans):
-    """Arrays of the golden npz for ``{stem: plan}``, computed by the
-    reference runtime."""
+    """Arrays of the golden npz for ``{stem: plan}`` and the
+    ``APPLY_POINTS``, computed by the reference runtime and blocks."""
     arrays = {}
+    for block, d, c in APPLY_POINTS:
+        x, wk = apply_operands(block, d, c)
+        key = f"apply.{block}.d{d}c{c}"
+        arrays[f"{key}.x"], arrays[f"{key}.w"] = x, wk
+        arrays[f"{key}.y"] = np.asarray(get_block(block).apply(
+            jnp.asarray(x), jnp.asarray(wk), data_bits=d, coeff_bits=c))
     for stem, plan in plans.items():
         cnn = CompiledCNN.from_plan(plan, max_batch=8, warmup=False)
         xs = np.stack(cnn.sample_inputs(8, seed=0))
@@ -98,11 +138,38 @@ def test_golden_npz_rebuilds_from_committed_plans():
             assert np.array_equal(got[k], v), k
 
 
+def test_synth_reference_rows_hold_the_reference_golden_rows():
+    """The committed reference rows agree with the reference's own
+    golden sweep rows (``tests/golden/synth_golden.json``)."""
+    payload = json.loads(SYNTH_REFERENCE.read_text())
+    assert payload["version"] == synth.SWEEP_SCHEMA_VERSION
+    assert len(payload["rows"]) == 784
+    rows = {(r["block"], r["data_bits"], r["coeff_bits"]): r
+            for r in payload["rows"]}
+    for want in json.loads(SYNTH_GOLDEN.read_text())["rows"]:
+        assert rows[(want["block"], want["data_bits"],
+                     want["coeff_bits"])] == want
+
+
+@pytest.mark.sweep
+def test_synth_reference_rows_rebuild_from_reference_sweep(tmp_path):
+    rows = synth.run_sweep(cache_path=tmp_path / "synth.json")
+    assert json.loads(SYNTH_REFERENCE.read_text())["rows"] == rows
+
+
 @pytest.mark.sweep
 def test_committed_plans_match_reference_planner():
     for stem in PINS:
         text = (PLANS / f"{stem}.json").read_text()
         assert reference_plan(stem).to_json() + "\n" == text, stem
+
+
+def write_synth_reference(rows):
+    """One row per line, so that a regeneration diffs by design point."""
+    lines = ",\n".join(json.dumps(r, sort_keys=True) for r in rows)
+    SYNTH_REFERENCE.write_text(
+        f'{{"version": {json.dumps(synth.SWEEP_SCHEMA_VERSION)}, '
+        f'"rows": [\n{lines}\n]}}\n')
 
 
 def main():
@@ -112,8 +179,10 @@ def main():
         plan.save(PLANS / f"{stem}.json")
     GOLDEN.parent.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(GOLDEN, **reference_golden(plans))
-    print(f"wrote {len(plans)} plans to {PLANS} and {GOLDEN} "
-          f"({GOLDEN.stat().st_size} bytes)")
+    write_synth_reference(synth.run_sweep())
+    print(f"wrote {len(plans)} plans to {PLANS}, {GOLDEN} "
+          f"({GOLDEN.stat().st_size} bytes) and {SYNTH_REFERENCE} "
+          f"({SYNTH_REFERENCE.stat().st_size} bytes)")
 
 
 if __name__ == "__main__":

@@ -57,6 +57,30 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
                    env={"PYTHONPATH": env_path, "PATH": "/usr/bin:/bin"})
 
 
+# the modules of each slice, which the import checks above must cover
+SLICE_MODULES = (
+    "repro_torch.kernels.conv2d", "repro_torch.blocks.base",
+    "repro_torch.core.cnn", "repro_torch.core.deploy",
+    "repro_torch.launch.serve",
+    # slice 2: the per-plane path and the planner
+    "repro_torch.configs.paper_conv", "repro_torch.core.census",
+    "repro_torch.core.synth", "repro_torch.core.correlate",
+    "repro_torch.core.polyfit", "repro_torch.core.allocate",
+)
+
+
+def test_import_checks_cover_every_slice_module():
+    from repro_torch.kernels import build
+    mods = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                  "repro_torch.")}
+    files = {str(p.relative_to(ROOT / "src"))[:-3].replace("/", ".")
+             for p in _sources()[:-1]}
+    for m in SLICE_MODULES:
+        assert m in mods and m in files, m
+    assert {"conv2_planes", "conv3_planes", "conv4_planes"} \
+        <= set(build.KERNELS)
+
+
 def test_build_names_a_library_per_source_hash():
     from repro_torch.kernels import build
     paths = {k: build.library_path(k) for k in build.KERNELS}
