@@ -10,7 +10,7 @@ order (any mismatch or error raises and the exit code is non-zero):
 1. environment: the card's name and power limit as nvidia-smi reports
    them, the torch, CUDA and nvcc versions, and the int32 CUDA-core rate
    from the card's SM count and maximum SM clock;
-2. build: the six CUDA kernels from ``src/repro_torch/kernels/csrc``
+2. build: the eight CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc each, all started together), with ``-Xptxas -v``;
 3. layer kernels (K1–K3) against their plain PyTorch versions on the
    card, with tolerance zero (``torch.equal``: the path is exact integer
@@ -50,7 +50,29 @@ order (any mismatch or error raises and the exit code is non-zero):
    requests served from the ``v5e`` plan; the counters are set to 0
    just before and read just after, and each plane kernel must have
    launched;
-8. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
+8. the LM path (K7, K8): the conv1d and attention kernels against their
+   plain versions on the card at the full-width shapes (K7 bit-exact at
+   the launches of a Mamba-2-1.3B layer: 4096 and 128 channels, a
+   prefill of (1, 512) without a state and a decode step of (4, 1) with
+   one, K = 4, bf16, and their sums per layer; K8 within
+   one bf16 unit at (1, 512, 24, 128) with 8 kv heads, causal, and at
+   S = 300), timed as in phase 3 (``library_ms``:
+   ``F.scaled_dot_product_attention`` and a depthwise ``F.conv1d``);
+   both smoke archs at float32 against the JAX reference's golden file
+   ``src/repro_torch/golden/lm_reference.npz`` (logits within 2e-3,
+   greedy tokens equal); then the launcher's ``serve_lm`` at full width
+   and depth for Llama-3.2-3B (28 layers) and Mamba-2-1.3B (48 layers),
+   bf16, random weights from a seeded generator: 8 requests, prompt 512,
+   32 new tokens, max_batch 4, after one untimed warm-up pass, with the
+   counters set to 0 before each arch and read after (K8 once per
+   attention layer per prefill and never in decode, K7 three times per
+   Mamba layer per prefill and per decode step); prefill ms per
+   request, decode ms per step, tokens/s, and a profiler trace of 16
+   decode steps for the device time and idle share per step; and one
+   prefill at full width cut to 4 layers on the card (kernels) against
+   the same parameters on the CPU (plain versions), relative L2 error of
+   the logits under 5e-2;
+9. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a result where ``torch.cuda.is_available()``
@@ -84,6 +106,10 @@ PROFILED_REQUESTS = 1024
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 INT32_LANES_PER_SM = 64
+# bf16 dense tensor cores 989 TFLOP/s; float32 outside the tensor cores
+# 67 TFLOP/s
+BF16_FLOPS_PER_S = 989e12
+FP32_FLOPS_PER_S = 67e12
 
 # main-path shapes at bucket 16: (kernel, N, H, W, ic, oc, d, c, on the
 # pinned plan); the pinned plan runs each kernel at one of them
@@ -104,6 +130,8 @@ REPLACES = {
     "conv2_planes": "src/repro/kernels/conv2d.py:107",
     "conv3_planes": "src/repro/kernels/conv2d.py:119",
     "conv4_planes": "src/repro/kernels/conv2d.py:146",
+    "causal_conv1d": "src/repro/kernels/conv1d.py:30",
+    "flash_attention": "src/repro/kernels/flash_attention.py:65",
 }
 # plane-kernel cases at the quickstart layers (1→8, 8→8, 8→4 channels,
 # 32×128): (kernel, P, d, c, on the own v5e plan's path); P is out_ch ·
@@ -119,6 +147,22 @@ PLANE_CASES = (
 # the pins of the planned variant that runs conv2 (K4) and conv1 (K3)
 PINNED_PLAN_PINS = {0: "conv2", 1: "conv1", 2: "conv3"}
 SERVED_FROM_OWN_PLAN = 16
+
+LM_GOLDEN = ROOT / "src" / "repro_torch" / "golden" / "lm_reference.npz"
+LM_ARCHS = ("llama3.2-3b", "mamba2-1.3b")
+LM_GOLDEN_TOL = 2e-3             # the reference's decode/prefill bound
+LM_REQUESTS, LM_PROMPT, LM_NEW, LM_MAX_BATCH = 8, 512, 32, 4
+LM_PROFILED_STEPS = 16
+# the kernel-vs-plain check at full width: 4 layers, a prompt that is a
+# multiple of neither attention tile (32 rows, 64 keys)
+LM_CUT_LAYERS, LM_CUT_PROMPT = 4, 100
+LM_CUT_REL_L2 = 5e-2
+# K7's design: the x, B and C convs of a Mamba layer are three launches,
+# in prefill and in each decode step
+K7_PER_MAMBA_LAYER = 3
+# K8 against its plain version in bf16: both round float32 values that
+# differ by about 1e-6, so at most one bf16 unit apart
+K8_BF16_TOL = dict(rtol=2 ** -7, atol=1e-3)
 
 
 def nvidia_smi_line() -> str:
@@ -586,13 +630,15 @@ def serve_profile(stem, step_ms):
 def counters():
     """Every kernel wrapper of the port, by kernel name."""
     from repro_torch.blocks import base
-    from repro_torch.kernels import conv2d
+    from repro_torch.kernels import conv1d, conv2d, flash_attention
     return {"conv1_layer": conv2d.conv1_layer,
             "fused_dot_layer": base.fused_dot_layer,
             "packed_dot_layer": base.packed_dot_layer,
             "conv2_planes": conv2d.conv2_planes,
             "conv3_planes": conv2d.conv3_planes,
-            "conv4_planes": conv2d.conv4_planes}
+            "conv4_planes": conv2d.conv4_planes,
+            "causal_conv1d": conv1d.causal_conv1d,
+            "flash_attention": flash_attention.flash_attention}
 
 
 def drive(entries, label, want, fn):
@@ -610,8 +656,9 @@ def drive(entries, label, want, fn):
         raise AssertionError(f"{label}: {missing} never launched "
                              f"({launches})")
     for k, v in launches.items():
-        entries[k]["launches"] += v
-        entries[k].setdefault("launches_by_path", {})[label] = v
+        e = entries.setdefault(k, kernel_entry(k))
+        e["launches"] += v
+        e.setdefault("launches_by_path", {})[label] = v
     print(f"[{label}] launches {launches}")
     return out
 
@@ -722,6 +769,377 @@ def plan_on_card(entries):
     return drive(entries, "plan on the card", want, run)
 
 
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def _lm_bound(nbytes, flops, rate):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_lm_kernels(entries):
+    """Phase 8, kernels: K7 and K8 against their plain versions on the
+    card at the full-width shapes, timed, into their ``entries``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import conv1d, flash_attention as fa
+    from repro_torch.models.ssm import ssm_dims
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for k in ("causal_conv1d", "flash_attention"):
+        entries.setdefault(k, kernel_entry(k))
+    g = torch.Generator(device="cuda").manual_seed(8)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda") \
+            .to(torch.bfloat16)
+
+    # the launches of one Mamba-2-1.3B layer on the serving path: the x
+    # conv over `inner` channels and the B and C convs over `gn` each; a
+    # prefill of LM_PROMPT without a state (the kernel's zero halo), a
+    # decode step at LM_MAX_BATCH with the cache's state
+    mcfg = get_config("mamba2-1.3b")
+    inner, _ = ssm_dims(mcfg)
+    gn, kk = mcfg.ssm.n_groups * mcfg.ssm.state_dim, mcfg.ssm.conv_kernel
+    conv_cases = [(phase, b, s, c, reps) for phase, b, s in (
+        ("prefill", 1, LM_PROMPT), ("decode", LM_MAX_BATCH, 1))
+        for c, reps in ((inner, 1), (gn, 2))]
+    print("[lm kernels] causal_conv1d against its plain version "
+          "(tolerance 0: the same float32 roundings in the same order)")
+    e = entries["causal_conv1d"]
+    e["per_layer"] = {ph: {"ms": 0.0, "device_ms": 0.0}
+                      for ph in ("prefill", "decode")}
+    for phase, b, s, c, reps in conv_cases:
+        x, w = randn(b, s, c), randn(kk, c)
+        st = randn(b, kk - 1, c) if phase == "decode" else None
+        y = conv1d.causal_conv1d(x, w, st)
+        torch.cuda.synchronize()
+        y_plain = conv1d.causal_conv1d_plain(x, w, st)
+        err = float((y - y_plain).abs().max())
+        eq = torch.equal(y, y_plain)
+        print(f"  causal_conv1d {phase} ({b},{s},{c}) K{kk} "
+              f"state={st is not None} bf16: equal={eq} max_abs_err={err}")
+        if not eq:
+            raise AssertionError(f"causal_conv1d disagrees with its plain "
+                                 f"version at ({b},{s},{c}): {err}")
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+        ms = time_ms(lambda: conv1d.causal_conv1d(x, w, st), 200, warmup=10)
+        plain_ms = time_ms(lambda: conv1d.causal_conv1d_plain(x, w, st), 20,
+                           warmup=2)
+        dev_ms = device_ms(lambda: conv1d.causal_conv1d(x, w, st),
+                           "causal_conv1d_kernel")
+        xpad = torch.cat([st if st is not None
+                          else x.new_zeros(b, kk - 1, c), x], 1) \
+            .transpose(1, 2).contiguous()
+        wt = w.t().contiguous()[:, None, :]
+        lib_ms = time_ms(lambda: F.conv1d(xpad, wt, groups=c), 200,
+                         warmup=10)
+        b_ms, b_by = _lm_bound(_nbytes(x, w, st) + y.numel() * 4,
+                               2 * b * s * c * kk, FP32_FLOPS_PER_S)
+        case = {"phase": phase, "shape": [b, s, c, kk],
+                "state": st is not None, "per_layer": reps, "ms": ms,
+                "device_ms": dev_ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+        print(f"    ms={ms:.6f} device_ms={dev_ms} plain_ms={plain_ms:.6f} "
+              f"bound_ms={b_ms:.6f} ({b_by}) library_ms={lib_ms:.6f}")
+        e["cases"].append(case)
+        layer = e["per_layer"][phase]
+        layer["ms"] += reps * ms
+        layer["device_ms"] = None if dev_ms is None \
+            or layer["device_ms"] is None \
+            else layer["device_ms"] + reps * dev_ms
+        if phase == "prefill" and c == inner:   # the headline: conv_x
+            e.update({k_: case[k_] for k_ in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "shape")})
+    print(f"  per Mamba layer (conv_x + conv_B + conv_C): "
+          f"{json.dumps(e['per_layer'])}")
+
+    print(f"[lm kernels] flash_attention against its plain version "
+          f"(bf16 {K8_BF16_TOL})")
+    e = entries["flash_attention"]
+    for b, s, h, kh, d in ((1, 512, 24, 8, 128), (1, 300, 24, 8, 128)):
+        q, k, v = randn(b, s, h, d), randn(b, s, kh, d), randn(b, s, kh, d)
+        out = fa.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_plain(q, k, v, causal=True)
+        err = float((out.float() - want.float()).abs().max())
+        print(f"  flash_attention ({b},{s},{h},{d}) kv {kh} causal bf16: "
+              f"max_abs_err={err}")
+        torch.testing.assert_close(out.float(), want.float(), **K8_BF16_TOL)
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+        ms = time_ms(lambda: fa.flash_attention(q, k, v), 100, warmup=5)
+        plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v), 10,
+                           warmup=2)
+        dev_ms = device_ms(lambda: fa.flash_attention(q, k, v),
+                           "flash_attention_kernel")
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 100, warmup=5)
+        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+        lib_err = float((lib.transpose(1, 2).float() - out.float()).abs()
+                        .max())
+        # the causal half of 4·B·H·S·T·D
+        b_ms, b_by = _lm_bound(_nbytes(q, k, v, out), 2 * b * h * s * s * d,
+                               BF16_FLOPS_PER_S)
+        case = {"shape": [b, s, h, kh, d], "ms": ms, "device_ms": dev_ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": lib_ms, "library_max_abs_diff": lib_err}
+        print(f"    ms={ms:.6f} device_ms={dev_ms} plain_ms={plain_ms:.6f} "
+              f"bound_ms={b_ms:.6f} ({b_by}) library_ms={lib_ms:.6f} "
+              f"library_max_abs_diff={lib_err}")
+        e["cases"].append(case)
+        if s == 512:
+            e.update({k_: case[k_] for k_ in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "shape")})
+
+
+def _lm_golden_params(z, arch, cfg, device):
+    from repro_torch import convert
+    return convert.lm_params_from_numpy(
+        convert.nested_from_flat(z, f"{arch}/params"), cfg, device)
+
+
+def lm_golden(entries):
+    """Phase 8, golden: both smoke archs at float32 on the card against
+    the JAX reference's committed outputs."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine, Request, ServeConfig
+
+    with np.load(LM_GOLDEN) as z:
+        golden = {k: z[k] for k in z.files}
+    for arch in LM_ARCHS:
+        cfg = smoke_config(arch).with_overrides(dtype="float32")
+        model = build_model(cfg, "cuda")
+        params = _lm_golden_params(golden, arch, cfg, "cuda")
+        toks = golden[f"{arch}/tokens"]
+        pos = golden[f"{arch}/decode_pos"]
+        want = {"flash_attention"} if arch.startswith("llama") \
+            else {"causal_conv1d"}
+
+        def run():
+            errs = []
+            logits, _ = model.prefill(params, {"tokens": toks})
+            errs.append(np.abs(logits.cpu().numpy()
+                               - golden[f"{arch}/prefill_logits"]).max())
+            _, cache = model.prefill(params, {"tokens": toks[:, :pos[0]]})
+            for entry in cache.values():
+                for name in ("k", "v"):
+                    if name in entry:
+                        entry[name] = torch.nn.functional.pad(
+                            entry[name], (0, 0, 0, 0, 0, len(pos)))
+            for i, p in enumerate(pos):
+                logits, cache = model.decode_step(params, cache,
+                                                  toks[:, p:p + 1], int(p))
+                errs.append(np.abs(logits.cpu().numpy()
+                                   - golden[f"{arch}/decode_logits"][i])
+                            .max())
+            reqs = [Request(prompt=[int(t) for t in p], request_id=i)
+                    for i, p in enumerate(golden[f"{arch}/engine_prompts"])]
+            Engine(model, params, ServeConfig(
+                max_batch=2, max_len=32, max_new_tokens=5)).run(reqs)
+            return float(max(errs)), [r.out_tokens for r in reqs]
+
+        err, tokens = drive(entries, f"lm golden {arch}", want, run)
+        same = tokens == golden[f"{arch}/engine_tokens"].tolist()
+        print(f"[lm golden] {arch} float32 on the card: logits max_abs_err "
+              f"{err:.3e} (tolerance {LM_GOLDEN_TOL}), greedy tokens equal "
+              f"{same}")
+        if err > LM_GOLDEN_TOL or not same:
+            raise AssertionError(f"{arch}: the card differs from the JAX "
+                                 f"golden (err {err}, tokens {tokens})")
+
+
+def lm_decode_profile(model, params, prompts):
+    """Device time per decode step from a profiler trace of
+    LM_PROFILED_STEPS steps of a full pool of ``prompts`` (prefilled and
+    stepped once untraced)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve import Engine, Request, ServeConfig
+    engine = Engine(model, params, ServeConfig(
+        max_batch=LM_MAX_BATCH, max_len=LM_PROMPT + LM_NEW + 8,
+        max_new_tokens=LM_PROFILED_STEPS + 2))
+    for i, p in enumerate(prompts[:LM_MAX_BATCH]):
+        if not engine.submit(Request(prompt=list(p), request_id=i)):
+            raise AssertionError("profile: a request was not admitted")
+    engine.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(LM_PROFILED_STEPS):
+            engine.step()
+        torch.cuda.synchronize()
+    traced_s = time.perf_counter() - t0
+    by_name, n_device = {}, 0
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CPU and ev.device_time_total > 0:
+            by_name[ev.name] = by_name.get(ev.name, 0.0) \
+                + ev.device_time_total
+            n_device += 1
+    if not by_name:
+        print("[lm profile] the trace holds no device time: not measured")
+        return None
+    if engine.timings()["decode_steps"] != LM_PROFILED_STEPS + 1:
+        raise AssertionError("profile: the pool did not stay full")
+    busy_ms = sum(by_name.values()) / 1e3 / LM_PROFILED_STEPS
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"steps": LM_PROFILED_STEPS, "device_ms_per_step": busy_ms,
+            "device_ops_per_step": n_device / LM_PROFILED_STEPS,
+            "traced_wall_ms_per_step": traced_s * 1e3 / LM_PROFILED_STEPS,
+            "top_ms_per_step": [[k[:80], v / 1e3 / LM_PROFILED_STEPS]
+                                for k, v in top]}
+
+
+def lm_full_width(entries):
+    """Phase 8, full width: the launcher's ``serve_lm`` for both archs at
+    full width and depth, bf16.  Returns the numbers per arch."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ATTN, LOCAL_ATTN, MAMBA
+    from repro_torch.launch import serve
+
+    out = {}
+    for arch in LM_ARCHS:
+        cfg = get_config(arch)
+        torch.cuda.reset_peak_memory_stats()
+
+        def run():
+            t0 = time.perf_counter()
+            engine, reqs, dt = serve.serve_lm(
+                cfg, requests=LM_REQUESTS, prompt_len=LM_PROMPT,
+                new_tokens=LM_NEW, max_batch=LM_MAX_BATCH, device="cuda")
+            # the rest of the call: model build, weight draw, requests
+            return engine, reqs, dt, time.perf_counter() - t0 - dt
+        run()                                        # untimed warm-up
+        attn = sum(s.mixer in (ATTN, LOCAL_ATTN)
+                   for s in cfg.layer_cycle) * cfg.n_cycles
+        mamba = sum(s.mixer == MAMBA for s in cfg.layer_cycle) \
+            * cfg.n_cycles
+        want = ({"flash_attention"} if attn else set()) \
+            | ({"causal_conv1d"} if mamba else set())
+        engine, reqs, dt, setup_s = drive(entries, f"lm full width {arch}",
+                                          want, run)
+        model, params = engine.model, engine.params
+        t = engine.timings()
+        k7 = entries["causal_conv1d"]["launches_by_path"][
+            f"lm full width {arch}"]
+        k8 = entries["flash_attention"]["launches_by_path"][
+            f"lm full width {arch}"]
+        if k8 != attn * t["prefills"]:
+            raise AssertionError(f"{arch}: flash_attention launched {k8} "
+                                 f"times, want {attn} per prefill x "
+                                 f"{t['prefills']} and none in decode")
+        if k7 != K7_PER_MAMBA_LAYER * mamba * (t["prefills"]
+                                               + t["decode_steps"]):
+            raise AssertionError(
+                f"{arch}: causal_conv1d launched {k7} times, want "
+                f"{K7_PER_MAMBA_LAYER} per Mamba layer ({mamba}) per prefill "
+                f"and decode step ({t['prefills']} + {t['decode_steps']})")
+        if not all(r.done and len(r.out_tokens) == LM_NEW
+                   and all(0 <= x < cfg.vocab_size for x in r.out_tokens)
+                   for r in reqs):
+            raise AssertionError(f"{arch}: a request was not served whole")
+        tokens = sum(len(r.out_tokens) for r in reqs)
+        decoded = tokens - t["prefills"]   # each prefill samples one token
+        res = {
+            "params": sum(t.numel() for t in _leaves(params)),
+            "setup_s": setup_s, "layers": cfg.n_layers,
+            "requests": LM_REQUESTS, "prompt_len": LM_PROMPT,
+            "new_tokens": LM_NEW, "max_batch": LM_MAX_BATCH,
+            "seconds": dt, "tokens_per_s": tokens / dt,
+            "prefills": t["prefills"], "decode_steps": t["decode_steps"],
+            "prefill_ms_per_request": t["prefill_s"] * 1e3 / t["prefills"],
+            "prefill_tokens_per_s":
+                t["prefills"] * LM_PROMPT / t["prefill_s"],
+            "decode_ms_per_step": t["decode_s"] * 1e3 / t["decode_steps"],
+            "decode_tokens_per_s": decoded / t["decode_s"],
+            "launches": {"flash_attention": k8, "causal_conv1d": k7},
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        prof = lm_decode_profile(model, params, [r.prompt for r in reqs])
+        if prof is not None:
+            prof["idle_share"] = 1.0 - prof["device_ms_per_step"] \
+                / res["decode_ms_per_step"]
+            # untraced wall time per device operation the step enqueues
+            prof["wall_us_per_device_op"] = res["decode_ms_per_step"] \
+                * 1e3 / prof["device_ops_per_step"]
+        res["decode_profile"] = prof
+        out[arch] = res
+        print(f"[lm full width] {arch}: {json.dumps(res)}")
+        del params, engine, model
+        torch.cuda.empty_cache()
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def lm_plain_vs_kernel(entries):
+    """Phase 8, one prefill at full width cut to LM_CUT_LAYERS layers: the
+    card (kernels) against the same parameters on the CPU (plain
+    versions), bf16."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    out = {}
+    for arch in LM_ARCHS:
+        cfg = get_config(arch).with_overrides(n_layers=LM_CUT_LAYERS)
+        model = build_model(cfg, "cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(1))
+        toks = np.random.default_rng(2).integers(
+            1, cfg.vocab_size, (1, LM_CUT_PROMPT))
+        want = {"flash_attention"} if arch.startswith("llama") \
+            else {"causal_conv1d"}
+        logits, _ = drive(entries, f"lm cut {arch}", want,
+                          lambda: model.prefill(params, {"tokens": toks}))
+        t0 = time.perf_counter()
+        cpu_logits, _ = build_model(cfg, "cpu").prefill(
+            _tree_map(lambda t: t.cpu(), params), {"tokens": toks})
+        cpu_s = time.perf_counter() - t0
+        a, b = logits.float().cpu(), cpu_logits.float()
+        rel = float((a - b).norm() / b.norm())
+        res = {"layers": LM_CUT_LAYERS, "prompt_len": LM_CUT_PROMPT,
+               "rel_l2": rel, "max_abs_err": float((a - b).abs().max()),
+               "logit_abs_max": float(b.abs().max()),
+               "argmax_equal": bool(torch.equal(a.argmax(-1),
+                                                b.argmax(-1))),
+               "finite": bool(torch.isfinite(a).all()), "cpu_s": cpu_s}
+        print(f"[lm cut] {arch} {LM_CUT_LAYERS} layers, prompt "
+              f"{LM_CUT_PROMPT}, card (kernels) vs CPU (plain): "
+              f"{json.dumps(res)}")
+        if not (res["finite"] and rel < LM_CUT_REL_L2):
+            raise AssertionError(f"{arch}: the card's prefill differs from "
+                                 f"the CPU's: relative L2 error {rel}")
+        out[arch] = res
+        del params, model
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -768,6 +1186,10 @@ def main() -> int:
         prof = serve_profile(PINNED, step_ms[PINNED])
         per_plane_forwards(entries)
         planned = plan_on_card(entries)
+        check_lm_kernels(entries)
+        lm_golden(entries)
+        lm = lm_full_width(entries)
+        lm_cut = lm_plain_vs_kernel(entries)
         keys = ("name", "route", "source", "replaces", "launches",
                 "max_abs_err", "equal", "ms", "device_ms", "plain_ms",
                 "bound_ms", "bound_by", "library_ms", "shape",
@@ -776,6 +1198,8 @@ def main() -> int:
                             for e in entries.values()],
                 "images_per_s": rates, "ms_per_step": step_ms,
                 "serve_profile": prof, "plan_on_card": planned,
+                "lm_k7_per_mamba_layer": entries["causal_conv1d"]["per_layer"],
+                "lm_full_width": lm, "lm_cut_plain_vs_kernel": lm_cut,
                 "int32_ops_per_s": int32_rate(), "card": smi}
         print(json.dumps(line))
         print(smi)

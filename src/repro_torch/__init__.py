@@ -6,10 +6,13 @@ plan artifacts.  It imports ``torch``, numpy and the standard library,
 never ``jax`` and nothing of ``repro``: the JAX package stays the
 reference that the tests hold this one against.
 
-The slice ported so far is the synchronous CNN serving path: plan JSON →
-``runtime.CompiledCNN`` → per layer ``ConvBlock.apply_batched`` (three
-hand-written CUDA kernels: ``conv1_layer``, ``fused_dot_layer``,
-``packed_dot_layer``) → ``core.cnn._requantize`` → ``serve.CNNEngine``.
+The slices ported so far: the synchronous CNN serving path (plan JSON
+→ ``runtime.CompiledCNN`` → per layer ``ConvBlock.apply_batched`` on the
+CUDA kernels ``conv1_layer``, ``fused_dot_layer`` and
+``packed_dot_layer`` → ``serve.CNNEngine``); the per-plane block path
+and the planner (``conv2_planes``, ``conv3_planes``, ``conv4_planes``);
+and LM serving for the dense and SSM families (``models`` →
+``serve.Engine``, on ``flash_attention`` and ``causal_conv1d``).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 on CPU tensors every kernel wrapper runs its plain PyTorch version.
 """

@@ -1,14 +1,15 @@
-"""Carry the reference's CNN parameters across to the port.
+"""Carry the reference's CNN and LM parameters across to the port.
 
 The port draws weights from a ``torch.Generator``, which cannot
 reproduce ``jax.random``; where both sides must compute the same thing,
 the reference's weights come across as numpy arrays (for example
-``[np.asarray(w) for w in repro.core.cnn.init_cnn(key, cfg)]``).
+``[np.asarray(w) for w in repro.core.cnn.init_cnn(key, cfg)]``, or the
+LM parameter pytree as nested dicts of ``np.asarray`` leaves).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -16,6 +17,7 @@ import torch
 from repro_torch.core.cnn import CNNConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.conv2d import container_dtype
+from repro_torch.models import transformer
 
 
 def params_from_numpy(arrays: Sequence, cfg: CNNConfig,
@@ -44,3 +46,63 @@ def params_from_numpy(arrays: Sequence, cfg: CNNConfig,
                              f"container [{info.min}, {info.max}]")
         params.append(torch.from_numpy(a.astype(np.int64)).to(cdt).to(dev))
     return params
+
+
+def _leaf_tensor(a, where: str) -> torch.Tensor:
+    """A float32 numpy array, or a bfloat16 one (the ``ml_dtypes`` type
+    ``np.asarray`` gives for a JAX bf16 array, which ``torch.from_numpy``
+    rejects: its bits are viewed as int16, then as ``torch.bfloat16``),
+    as a CPU tensor of the same dtype and values."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()) \
+            .view(torch.bfloat16)
+    if a.dtype != np.float32:
+        raise ValueError(f"{where}: expected float32 or bfloat16, got "
+                         f"{a.dtype}")
+    return torch.from_numpy(a.copy())
+
+
+def lm_params_from_numpy(tree: Mapping, cfg,
+                         device: DeviceLike = "cuda") -> Dict:
+    """The port's LM parameters for ``cfg`` from the reference's
+    parameter pytree as nested dicts of numpy arrays (float32, or
+    bfloat16 by dtype name), on ``device``.  Every leaf is checked
+    against the shape the port's ``init_params`` gives it and cast to
+    its dtype there (float32 → bfloat16 is exact for values that were
+    bfloat16).  Raises on a missing, extra or misshapen leaf."""
+    dev = resolve_device(device)
+    want = transformer.init_params(None, cfg)        # shapes on meta
+
+    def convert(node, spec, where):
+        if isinstance(spec, dict):
+            if not isinstance(node, Mapping):
+                raise ValueError(f"{where}: expected a dict")
+            if set(node) != set(spec):
+                raise ValueError(
+                    f"{where}: keys {sorted(node)} != {sorted(spec)}")
+            return {k: convert(node[k], spec[k], f"{where}.{k}")
+                    for k in spec}
+        t = _leaf_tensor(node, where)
+        if tuple(t.shape) != tuple(spec.shape):
+            raise ValueError(f"{where}: shape {tuple(t.shape)} != "
+                             f"{tuple(spec.shape)}")
+        return t.to(device=dev, dtype=spec.dtype)
+
+    return convert(tree, want, "params")
+
+
+def nested_from_flat(arrays: Mapping, prefix: str, sep: str = "/") -> Dict:
+    """The nested dictionary stored flat under ``<prefix><sep>a<sep>b…``
+    keys (as the committed LM golden file stores a parameter pytree)."""
+    tree: Dict = {}
+    head = prefix + sep
+    for key in arrays:
+        if not key.startswith(head):
+            continue
+        *path, leaf = key[len(head):].split(sep)
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = arrays[key]
+    return tree

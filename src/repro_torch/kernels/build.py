@@ -28,7 +28,8 @@ from typing import Callable, Dict, Iterable, Sequence
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("conv1_layer", "fused_dot_layer", "packed_dot_layer",
-           "conv2_planes", "conv3_planes", "conv4_planes")
+           "conv2_planes", "conv3_planes", "conv4_planes", "causal_conv1d",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

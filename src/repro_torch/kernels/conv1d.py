@@ -1,0 +1,103 @@
+"""Depthwise causal conv1d of the Mamba-2 mixer: the CUDA kernel K7 and
+its plain version.
+
+Port of ``repro.kernels.conv1d``.  ``causal_conv1d`` replaces
+``causal_conv1d_pallas`` (``_kernel``): K float32 multiply-adds per
+output over a left halo of K-1 positions, float32 out, before the SiLU.
+The Pallas kernel pads the halo with zeros; this one reads it from a
+state (the trailing K-1 inputs of the previous call) where one is
+given, so the same kernel serves prefill at any length and decode at one
+position.  A wrapper runs the plain version for a tensor on the CPU and
+launches the kernel (``csrc/causal_conv1d.cu``) for a tensor on the card
+(or raises); ``causal_conv1d.launches`` counts the launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import causal_conv1d_ref
+
+FLOATS = (torch.float32, torch.bfloat16)
+MAX_K = 8                      # taps the kernel instantiates (1 .. 8)
+
+
+def causal_conv1d_plain(x: torch.Tensor, w: torch.Tensor,
+                        state: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Plain version of ``causal_conv1d``: the oracle's K-tap loop, whose
+    products and sums the kernel rounds in the same order."""
+    return causal_conv1d_ref(x, w, state)
+
+
+def _check(x: torch.Tensor, w: torch.Tensor,
+           state: Optional[torch.Tensor]) -> None:
+    if x.ndim != 3 or w.ndim != 2 or w.shape[1] != x.shape[2] \
+            or w.shape[0] < 1:
+        raise ValueError(f"causal_conv1d: expected x (B, S, C) and w (K, C), "
+                         f"got {tuple(x.shape)} and {tuple(w.shape)}")
+    k = w.shape[0]
+    if state is not None and (
+            tuple(state.shape) != (x.shape[0], k - 1, x.shape[2])
+            or state.dtype != x.dtype or state.device != x.device):
+        raise ValueError(
+            f"causal_conv1d: state must be (B, K-1, C) = "
+            f"{(x.shape[0], k - 1, x.shape[2])} in x's dtype on x's device, "
+            f"got {tuple(state.shape)} {state.dtype} on {state.device}")
+    if x.dtype not in FLOATS or w.dtype != x.dtype:
+        raise ValueError(f"causal_conv1d: x and w must share one dtype, "
+                         f"float32 or bfloat16, got {x.dtype} and "
+                         f"{w.dtype}")
+    if x.device != w.device:
+        raise ValueError(f"causal_conv1d: x on {x.device} but w on "
+                         f"{w.device}")
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# x, w, state, y, bf16, b, s, c, k, stream
+_ARGTYPES = (_P, _P, _P, _P) + (_I,) * 5 + (_P,)
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  state: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y[b, s, c] = Σ_j (state ‖ x)[b, s + j, c] · w[j, c] in float32:
+    x (B, S, C) and w (K, C) both in float32 or both in bfloat16, state
+    (B, K-1, C) in x's dtype or None (zeros) → float32 (B, S, C), before the SiLU.
+    One CUDA launch on the card; the plain version on the CPU."""
+    _check(x, w, state)
+    if x.device.type == "cpu":
+        return causal_conv1d_plain(x, w, state)
+    if x.device.type != "cuda":
+        raise ValueError(f"causal_conv1d: no kernel for a tensor on "
+                         f"{x.device}")
+    k = w.shape[0]
+    if k > MAX_K:
+        raise ValueError(f"causal_conv1d: the kernel takes K <= {MAX_K}, "
+                         f"got {k}")
+    tensors = (x, w) if state is None else (x, w, state)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("causal_conv1d: x, w and state must be contiguous")
+    if x.device.index != torch.cuda.current_device():
+        raise ValueError(
+            f"causal_conv1d: x is on {x.device} but the current device is "
+            f"cuda:{torch.cuda.current_device()}")
+    b, s, c = x.shape
+    y = torch.empty((b, s, c), dtype=torch.float32, device=x.device)
+    if y.numel() == 0:
+        return y
+    fn = build.kernel("causal_conv1d", _ARGTYPES)
+    err = fn(x.data_ptr(), w.data_ptr(),
+             None if state is None or state.numel() == 0
+             else state.data_ptr(),
+             y.data_ptr(), int(x.dtype == torch.bfloat16), b, s, c, k,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    build.check("causal_conv1d", err)
+    causal_conv1d.launches += 1
+    return y
+
+
+causal_conv1d.launches = 0

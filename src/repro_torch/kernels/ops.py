@@ -1,6 +1,7 @@
-"""Quantization helper and the deprecated block shims.
+"""Public wrappers of the kernel library and the quantization helper.
 
-Port of ``repro.kernels.ops``: ``quantize_fixed``, and
+Port of ``repro.kernels.ops``: ``quantize_fixed``; ``causal_conv1d`` (the
+kernel K7) and its oracle ``causal_conv1d_ref``; and
 ``conv_block``/``conv_block_ref``, which survive only as deprecated
 shims over the ``repro_torch.blocks`` registry — use
 ``get_block(name).apply(...)`` / ``.reference(...)`` instead.
@@ -12,7 +13,7 @@ import warnings
 
 import torch
 
-from repro_torch.kernels import conv2d
+from repro_torch.kernels import conv1d, conv2d, ref
 
 
 def quantize_fixed(x, bits: int, *, signed: bool = True) -> torch.Tensor:
@@ -58,3 +59,13 @@ def conv_block_ref(block, x, w, **kw):
     del kw  # legacy signature compatibility
     from repro_torch.blocks import get_block
     return get_block(block).reference(x, w)
+
+
+def causal_conv1d(x, w, conv_state=None) -> torch.Tensor:
+    """Depthwise causal conv1d, float32 and before the SiLU: the kernel
+    K7 on the card, its plain version on the CPU."""
+    return conv1d.causal_conv1d(x, w, conv_state)
+
+
+def causal_conv1d_ref(x, w, conv_state=None) -> torch.Tensor:
+    return ref.causal_conv1d_ref(x, w, conv_state)

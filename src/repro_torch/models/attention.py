@@ -1,0 +1,188 @@
+"""Attention: GQA with optional sliding window, logit softcaps and KV cache.
+
+Port of ``repro.models.attention``.  A full-sequence causal call without
+window, softcap or cache masking — the prefill of a dense model such as
+Llama — goes to the attention kernel K8
+(``kernels.flash_attention.flash_attention``: the CUDA kernel on the
+card, its plain version on the CPU).  Every other call takes the
+reference's chunked path: the query is cut into chunks so the live
+logits tensor is O(B·H·chunk·T) instead of O(B·H·S·T); decode (a single
+query position against a cache) takes the direct path.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.layers import apply_rope, dense_init, softcap
+
+NEG_INF = -2.3819763e38  # most-negative bf16-representable
+
+
+def init_attention(gen, cfg):
+    d, h, kh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = cfg.torch_dtype
+    return {
+        "wq": dense_init(gen, (d, h, hd), dt, fan_in=d),
+        "wk": dense_init(gen, (d, kh, hd), dt, fan_in=d),
+        "wv": dense_init(gen, (d, kh, hd), dt, fan_in=d),
+        "wo": dense_init(gen, (h, hd, d), dt, fan_in=h * hd),
+    }
+
+
+def _attend(qc, k, v, row_pos, col_pos, *, causal, window, valid_len, cap,
+            scale, logits_dtype=torch.float32):
+    """qc: (B,C,KH,G,Dh)  k,v: (B,T,KH,Dh)  row_pos: (C,)  col_pos: (T,)."""
+    logits = torch.einsum("bckgd,btkd->bckgt", qc.to(logits_dtype),
+                          k.to(logits_dtype)).float() * scale
+    logits = softcap(logits, cap)
+    mask = torch.ones((row_pos.shape[0], col_pos.shape[0]), dtype=torch.bool,
+                      device=qc.device)
+    if causal:
+        mask &= col_pos[None, :] <= row_pos[:, None]
+    if window is not None:
+        mask &= col_pos[None, :] > (row_pos[:, None] - window)
+    if valid_len is not None:
+        mask &= (col_pos < valid_len)[None, :]
+    logits = torch.where(mask[None, :, None, None, :], logits,
+                         torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bckgt,btkd->bckgd", probs.to(logits_dtype),
+                       v.to(logits_dtype))
+    return out.to(v.dtype)
+
+
+def uses_flash_kernel(s: int, *, causal: bool, window, cap, q_offset,
+                      kv_valid_len, logits_bf16: bool = False) -> bool:
+    """The dispatch rule of K8, on the call's arguments alone: a
+    full-sequence causal call (S > 1) with no window, softcap or cache
+    masking, from position 0 — the prefill of a dense model.  Calls that
+    ask for bf16 logits keep the chunked path, which computes them so."""
+    return (s > 1 and causal and window is None and cap is None
+            and kv_valid_len is None and isinstance(q_offset, int)
+            and q_offset == 0 and not logits_bf16)
+
+
+def multi_head_attention(q, k, v, *, causal: bool,
+                         window: Optional[int] = None,
+                         cap: Optional[float] = None,
+                         q_offset=0,
+                         kv_valid_len=None,
+                         q_chunk: int = 1024,
+                         logits_bf16: bool = False):
+    """q: (B,S,H,Dh); k,v: (B,T,KH,Dh) -> (B,S,H,Dh).
+
+    ``q_offset``: absolute position of q[0] (decode against a cache).
+    ``kv_valid_len``: scalar — mask cache positions >= it (decode).
+    The reference's ``batch_shard`` resharding hint has no counterpart on
+    one card and is dropped.
+    """
+    b, s, h, hd = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    if uses_flash_kernel(s, causal=causal, window=window, cap=cap,
+                         q_offset=q_offset, kv_valid_len=kv_valid_len,
+                         logits_bf16=logits_bf16):
+        return flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=True)
+    g = h // kh
+    scale = 1.0 / (hd ** 0.5)
+    ldt = torch.bfloat16 if logits_bf16 else torch.float32
+    qg = q.reshape(b, s, kh, g, hd)
+    col_pos = torch.arange(t, device=q.device)
+
+    if s == 1:  # decode: single query position, no chunking
+        # a fill, not a copy from the host, which would wait for the card
+        row_pos = torch.full((1,), int(q_offset), dtype=torch.int64,
+                             device=q.device)
+        out = _attend(qg, k, v, row_pos, col_pos, causal=causal,
+                      window=window, valid_len=kv_valid_len, cap=cap,
+                      scale=scale, logits_dtype=ldt)
+        return out.reshape(b, s, h, hd)
+
+    n_chunks = max(1, -(-s // q_chunk))
+    while s % n_chunks:
+        n_chunks += 1
+    c = s // n_chunks
+    outs = []
+    for idx in range(n_chunks):
+        row_pos = q_offset + idx * c + torch.arange(c, device=q.device)
+        outs.append(_attend(qg[:, idx * c:(idx + 1) * c], k, v, row_pos,
+                            col_pos, causal=causal, window=window,
+                            valid_len=kv_valid_len, cap=cap, scale=scale,
+                            logits_dtype=ldt))
+    return torch.cat(outs, dim=1).reshape(b, s, h, hd)
+
+
+def _project(x, w):
+    """einsum("bsd,dhk->bshk") as one matrix product."""
+    d, h, hd = w.shape
+    return (x @ w.reshape(d, h * hd)).reshape(*x.shape[:-1], h, hd)
+
+
+def _write_cache(cache: torch.Tensor, new: torch.Tensor, pos: int) -> None:
+    """``jax.lax.dynamic_update_slice(cache, new, (0, pos, 0, 0))`` in
+    place: the start clamps to [0, T - S] as XLA's does."""
+    t, s = cache.shape[1], new.shape[1]
+    start = min(max(int(pos), 0), t - s)
+    cache[:, start:start + s] = new.to(cache.dtype)
+
+
+def attention_block(p, x, cfg, *, causal=True, window=None,
+                    positions=None, cache_kv=None, cache_pos=None,
+                    cross_kv=None, return_kv=False):
+    """One attention sublayer (projections + MHA), cache-aware.
+
+    Modes:
+      * full-sequence (train / prefill): ``cache_kv=None``; pass
+        ``return_kv=True`` to hand (k, v) to a new cache.
+      * decode: x is (B,1,D); ``cache_kv=(k_cache, v_cache)`` with absolute
+        write position ``cache_pos`` (an int); attends to
+        cache[0:cache_pos+1].  The new K/V are written into the cache
+        tensors in place (the reference returns updated copies), and the
+        same tensors come back as the new cache.
+      * cross attention: ``cross_kv=(k, v)`` precomputed from the encoder.
+    """
+    b, s, _ = x.shape
+    if positions is None:
+        start = 0 if cache_pos is None else int(cache_pos)
+        positions = (start + torch.arange(s, device=x.device))[None, :]
+
+    q = _project(x, p["wq"])
+    if cross_kv is not None:
+        k, v = cross_kv
+        out = multi_head_attention(q, k, v, causal=False,
+                                   cap=cfg.attn_softcap,
+                                   logits_bf16=cfg.attn_logits_bf16)
+        new_kv = None
+    else:
+        k = _project(x, p["wk"])
+        vv = _project(x, p["wv"])
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        if cache_kv is not None:
+            k_cache, v_cache = cache_kv
+            pos = int(cache_pos)
+            _write_cache(k_cache, k, pos)
+            _write_cache(v_cache, vv, pos)
+            out = multi_head_attention(
+                q, k_cache, v_cache, causal=False, window=window,
+                cap=cfg.attn_softcap, q_offset=pos,
+                kv_valid_len=pos + s,
+                logits_bf16=cfg.attn_logits_bf16)
+            new_kv = (k_cache, v_cache)
+        else:
+            out = multi_head_attention(q, k, vv, causal=causal,
+                                       window=window, cap=cfg.attn_softcap,
+                                       logits_bf16=cfg.attn_logits_bf16)
+            new_kv = (k, vv) if return_kv else None
+    h, hd, d = p["wo"].shape
+    y = out.reshape(b, s, h * hd) @ p["wo"].reshape(h * hd, d)
+    return y, new_kv
+
+
+def init_cross_kv(p, enc_out, cfg):
+    """Precompute cross-attention K/V from encoder output (no RoPE)."""
+    return _project(enc_out, p["wk"]), _project(enc_out, p["wv"])

@@ -1,0 +1,48 @@
+"""Model facade: one object per architecture.
+
+Port of ``repro.models.registry`` for inference: ``Model`` (``init``,
+``init_cache``, ``prefill``, ``decode_step``) and ``build_model``.  The
+dry-run helpers ``init_abstract``, ``cache_abstract`` and
+``input_specs`` wait for the multi-device slice (ROADMAP item 11), and
+``forward_train`` for the training slice (item 10).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import transformer as tf
+
+
+@dataclass
+class Model:
+    cfg: ModelConfig
+    device: torch.device
+
+    # ---- param / cache construction ----------------------------------
+    def init(self, generator: torch.Generator):
+        """Parameters drawn from ``generator``, which must live on the
+        model's device."""
+        if torch.device(generator.device).type != self.device.type:
+            raise ValueError(f"generator on {generator.device}, model on "
+                             f"{self.device}")
+        return tf.init_params(generator, self.cfg)
+
+    def init_cache(self, batch: int, max_len: int):
+        return tf.init_cache(self.cfg, batch, max_len, self.device)
+
+    # ---- forwards ------------------------------------------------------
+    def prefill(self, params, batch):
+        return tf.prefill(params, batch, self.cfg)
+
+    def decode_step(self, params, cache, token, pos):
+        return tf.decode_step(params, cache, token, pos, self.cfg)
+
+
+def build_model(cfg: ModelConfig, device: DeviceLike = "cuda") -> Model:
+    tf.check_supported(cfg)
+    return Model(cfg, resolve_device(device))

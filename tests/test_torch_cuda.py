@@ -1,8 +1,10 @@
 """Card tests of the port: each CUDA kernel against its plain PyTorch
-version on the card (tolerance 0, exact integer arithmetic), the launch
-contract, and both slices on the card against the JAX reference's
-golden outputs: the serving path (K1–K3) and the per-plane path
-(``ConvBlock.apply``, ``cnn_forward_loop``, ``validate_plan``: K3–K6).
+version on the card (tolerance 0 for the integer kernels and the conv1d,
+stated tolerances for attention), the launch contract, and the slices
+on the card against the JAX reference's golden outputs: the serving
+path (K1–K3), the per-plane path (``ConvBlock.apply``,
+``cnn_forward_loop``, ``validate_plan``: K3–K6) and the LM path (K7,
+K8: ``prefill``, ``decode_step`` and the ``Engine``).
 Every test here carries the ``cuda`` marker and skips without a card;
 this file imports no JAX, so it also runs where JAX is not installed:
 
@@ -19,8 +21,11 @@ from repro_torch import convert, runtime
 from repro_torch.blocks import base, get_block
 from repro_torch.core import allocate, cnn, deploy, synth
 from repro_torch.configs.paper_conv import REDUCED_SWEEP
-from repro_torch.kernels import conv2d
-from repro_torch.serve import CNNEngine, CNNServeConfig, ImageRequest
+from repro_torch.configs import smoke_config
+from repro_torch.kernels import conv1d, conv2d, flash_attention as fa
+from repro_torch.models import build_model
+from repro_torch.serve import (CNNEngine, CNNServeConfig, Engine,
+                               ImageRequest, Request, ServeConfig)
 from torch_parity import cuda, operands  # noqa: F401 (fixture)
 
 pytestmark = pytest.mark.cuda
@@ -29,6 +34,7 @@ SRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 UNPINNED = SRC / "plans" / "quickstart_v5e.json"
 PINNED = SRC / "plans" / "quickstart_v5e_conv1_conv3.json"
 GOLDEN = SRC / "golden" / "quickstart_reference.npz"
+LM_GOLDEN = SRC / "golden" / "lm_reference.npz"
 
 KERNELS = {"conv1_layer": (conv2d.conv1_layer, conv2d.conv1_layer_plain),
            "fused_dot_layer": (base.fused_dot_layer,
@@ -233,3 +239,130 @@ def test_validate_plan_on_card(cuda, tmp_path):
     assert val.bit_exact
     for r, m in val.metrics.items():
         assert m["mape_pct"] < 2.0, (r, m)
+
+
+# (B, S, C, K, with a state, dtype): the launches of a Mamba-2-1.3B layer
+# on the serving path (conv_x over 4096 channels, conv_B and conv_C over
+# 128 each; a prefill of 512 without a state, a decode step at batch 4
+# with one), short prefills against a state, odd channel counts
+CONV1D_CASES = [(1, 512, 4096, 4, False, torch.bfloat16),
+                (1, 512, 128, 4, False, torch.bfloat16),
+                (4, 1, 4096, 4, True, torch.bfloat16),
+                (4, 1, 128, 4, True, torch.bfloat16),
+                (2, 37, 64, 4, True, torch.float32),
+                (2, 2, 64, 4, True, torch.float32),
+                (3, 130, 100, 3, False, torch.float32),
+                (2, 70, 33, 1, True, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("b,s,c,k,with_state,dtype", CONV1D_CASES)
+def test_conv1d_kernel_matches_plain_on_card(cuda, b, s, c, k, with_state,
+                                             dtype):
+    """Bit-exact: the kernel rounds each product and sum in float32 in
+    the plain version's order (no fused multiply-add)."""
+    g = torch.Generator(device=cuda).manual_seed(s * c + k)
+    x = torch.randn(b, s, c, generator=g, device=cuda).to(dtype)
+    w = torch.randn(k, c, generator=g, device=cuda).to(dtype)
+    st = torch.randn(b, k - 1, c, generator=g, device=cuda).to(dtype) \
+        if with_state else None
+    before = conv1d.causal_conv1d.launches
+    y = conv1d.causal_conv1d(x, w, st)
+    torch.cuda.synchronize()
+    assert conv1d.causal_conv1d.launches == before + 1
+    assert y.dtype == torch.float32 and tuple(y.shape) == (b, s, c)
+    assert torch.equal(y, conv1d.causal_conv1d_plain(x, w, st))
+
+
+# (B, S, T, H, KH, D, causal, dtype): the Llama-3.2-3B prefill shape, a
+# length that is not a tile multiple, the smoke width, D = 8 and 256,
+# MQA, S != T
+FLASH_CASES = [(1, 512, 512, 24, 8, 128, True, torch.bfloat16),
+               (1, 300, 300, 24, 8, 128, True, torch.bfloat16),
+               (2, 16, 16, 4, 2, 16, True, torch.float32),
+               (2, 48, 48, 4, 4, 8, True, torch.float32),
+               (2, 256, 256, 8, 1, 32, False, torch.float32),
+               (1, 100, 300, 4, 2, 256, True, torch.float32),
+               (1, 65, 130, 8, 4, 256, False, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("b,s,t,h,kh,d,causal,dtype", FLASH_CASES)
+def test_flash_kernel_matches_plain_on_card(cuda, b, s, t, h, kh, d, causal,
+                                            dtype):
+    """float32: 2e-5 (the same blocked online softmax, products summed in
+    another order); bfloat16: both round float32 values that differ by
+    about 1e-6, so at most one bf16 unit apart (2^-7 relative)."""
+    g = torch.Generator(device=cuda).manual_seed(s + t + d)
+    q = torch.randn(b, s, h, d, generator=g, device=cuda).to(dtype)
+    k = torch.randn(b, t, kh, d, generator=g, device=cuda).to(dtype)
+    v = torch.randn(b, t, kh, d, generator=g, device=cuda).to(dtype)
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    tol = dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32 \
+        else dict(rtol=2 ** -7, atol=1e-3)
+    torch.testing.assert_close(out.float(), want.float(), **tol)
+
+
+def test_lm_kernels_refuse_what_they_do_not_take(cuda):
+    x = torch.zeros(2, 8, 16, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv1d.causal_conv1d(x.transpose(1, 2).contiguous().transpose(1, 2),
+                             torch.zeros(4, 16, device=cuda))
+    with pytest.raises(ValueError, match="K <= 8"):
+        conv1d.causal_conv1d(x, torch.zeros(9, 16, device=cuda))
+    q = torch.zeros(1, 8, 2, 512, device=cuda)
+    with pytest.raises(ValueError, match="head dims up to 256"):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros(1, 8, 2, 16, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           q, q)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-1.3b"])
+def test_lm_on_card_matches_golden(cuda, arch):
+    """The smoke configs at float32 on the card against the reference's
+    committed outputs: logits within 2e-3, greedy tokens equal; K8 runs
+    once per attention layer in prefill and never in decode, K7 three
+    times per Mamba layer in both."""
+    cfg = smoke_config(arch).with_overrides(dtype="float32")
+    with np.load(LM_GOLDEN) as z:
+        g = {k: z[k] for k in z.files if k.startswith(arch + "/")}
+    model = build_model(cfg, cuda)
+    params = convert.lm_params_from_numpy(
+        convert.nested_from_flat(g, f"{arch}/params"), cfg, cuda)
+    toks = g[f"{arch}/tokens"]
+    attn = cfg.n_layers if arch.startswith("llama") else 0
+    mamba = cfg.n_layers - attn
+    k7, k8 = conv1d.causal_conv1d.launches, fa.flash_attention.launches
+    logits, _ = model.prefill(params, {"tokens": toks})
+    assert fa.flash_attention.launches - k8 == attn
+    assert conv1d.causal_conv1d.launches - k7 == 3 * mamba
+    np.testing.assert_allclose(logits.cpu().numpy(),
+                               g[f"{arch}/prefill_logits"], rtol=2e-3,
+                               atol=2e-3)
+    pos = g[f"{arch}/decode_pos"]
+    _, cache = model.prefill(params, {"tokens": toks[:, :pos[0]]})
+    for entry in cache.values():
+        for name in ("k", "v"):
+            if name in entry:
+                entry[name] = torch.nn.functional.pad(
+                    entry[name], (0, 0, 0, 0, 0, len(pos)))
+    k7, k8 = conv1d.causal_conv1d.launches, fa.flash_attention.launches
+    for i, p in enumerate(pos):
+        logits, cache = model.decode_step(params, cache, toks[:, p:p + 1],
+                                          int(p))
+        np.testing.assert_allclose(logits.cpu().numpy(),
+                                   g[f"{arch}/decode_logits"][i],
+                                   rtol=2e-3, atol=2e-3)
+    assert fa.flash_attention.launches == k8
+    assert conv1d.causal_conv1d.launches - k7 == 3 * mamba * len(pos)
+    reqs = [Request(prompt=[int(t) for t in p], request_id=i)
+            for i, p in enumerate(g[f"{arch}/engine_prompts"])]
+    Engine(model, params, ServeConfig(max_batch=2, max_len=32,
+                                      max_new_tokens=5)).run(reqs)
+    assert [r.out_tokens for r in reqs] == g[f"{arch}/engine_tokens"] \
+        .tolist()

@@ -21,6 +21,15 @@ block on one numpy-made 32×128 plane at the ``APPLY_POINTS`` (inputs
 full ``SWEEP`` rows (784, its jaxpr census): the port's planner
 arithmetic is held to the reference's by feeding it these rows.
 
+``src/repro_torch/golden/lm_reference.npz`` holds, per arch of
+``LM_ARCHS`` at ``smoke_config`` in float32: the reference's parameters
+(``model.init(PRNGKey(0))``, flat under ``<arch>/params/<path>``), a
+numpy-made prompt batch ``<arch>/tokens`` (2, 16), the prefill logits
+of the whole batch, the logits of three teacher-forced decode steps
+(prefill of the first 13 tokens, then tokens 13, 14, 15 at positions
+``<arch>/decode_pos``), and the reference ``Engine``'s greedy tokens for
+4 numpy-made requests (``<arch>/engine_prompts`` → ``engine_tokens``).
+
 The card is held against the JAX package through these files, without
 importing it.  Regenerate all of them (the reference's planner and this
 file run the reference's resource sweep, about a minute without its
@@ -33,14 +42,18 @@ import dataclasses
 import json
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from repro.blocks import get_block
+from repro.configs import smoke_config
 from repro.core import allocate, deploy, synth
 from repro.core.cnn import fitted_block_models, quickstart_cnn_config
+from repro.models import build_model
 from repro.runtime import CompiledCNN
+from repro.serve import Engine, Request, ServeConfig
 
 ROOT = Path(__file__).resolve().parents[1]
 PLANS = ROOT / "src" / "repro_torch" / "plans"
@@ -48,6 +61,13 @@ GOLDEN = ROOT / "src" / "repro_torch" / "golden" / "quickstart_reference.npz"
 SYNTH_REFERENCE = ROOT / "src" / "repro_torch" / "golden" \
     / "synth_reference.json"
 SYNTH_GOLDEN = ROOT / "tests" / "golden" / "synth_golden.json"
+LM_GOLDEN = ROOT / "src" / "repro_torch" / "golden" / "lm_reference.npz"
+LM_ARCHS = ("llama3.2-3b", "mamba2-1.3b")
+LM_BATCH, LM_SEQ, LM_DECODE_STEPS = 2, 16, 3
+# the reference Engine's requests: prompts of 8 tokens, 5 new tokens each,
+# two slots (the tests/test_serve.py shape)
+LM_ENGINE = dict(requests=4, prompt_len=8, max_batch=2, max_len=32,
+                 new_tokens=5)
 
 # (block, data_bits, coeff_bits) of the golden ``apply`` outputs: bits 3
 # and 16, the 8/9-bit container, and conv3 either side of d+c = 12
@@ -112,6 +132,73 @@ def reference_golden(plans):
         arrays[f"{stem}.x"] = xs
         arrays[f"{stem}.y"] = np.asarray(cnn(xs))
     return arrays
+
+
+def lm_reference_golden():
+    """Arrays of the LM golden npz, computed by the reference model and
+    engine at ``smoke_config`` in float32."""
+    arrays = {}
+    for n, arch in enumerate(LM_ARCHS):
+        cfg = smoke_config(arch).with_overrides(dtype="float32")
+        model = build_model(cfg)
+        params = model.init(jax.random.PRNGKey(0))
+        for path, leaf in jax.tree_util.tree_leaves_with_path(params):
+            key = "/".join(p.key for p in path)
+            arrays[f"{arch}/params/{key}"] = np.asarray(leaf)
+        rng = np.random.default_rng(1000 + n)
+        toks = rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_SEQ)) \
+            .astype(np.int32)
+        arrays[f"{arch}/tokens"] = toks
+        prefill = jax.jit(model.prefill)
+        logits, _ = prefill(params, {"tokens": jnp.asarray(toks)})
+        arrays[f"{arch}/prefill_logits"] = np.asarray(logits)
+        start = LM_SEQ - LM_DECODE_STEPS
+        _, cache = prefill(params, {"tokens": jnp.asarray(toks[:, :start])})
+        cache = {key: {name: jnp.pad(leaf, ((0, 0), (0, 0),
+                                            (0, LM_DECODE_STEPS), (0, 0),
+                                            (0, 0)))
+                       if name in ("k", "v") else leaf
+                       for name, leaf in entry.items()}
+                 for key, entry in cache.items()}
+        decode = jax.jit(model.decode_step)
+        steps = []
+        for pos in range(start, LM_SEQ):
+            logits, cache = decode(params, cache,
+                                   jnp.asarray(toks[:, pos:pos + 1]),
+                                   jnp.int32(pos))
+            steps.append(np.asarray(logits))
+        arrays[f"{arch}/decode_pos"] = np.arange(start, LM_SEQ,
+                                                 dtype=np.int32)
+        arrays[f"{arch}/decode_logits"] = np.stack(steps)
+        e = LM_ENGINE
+        prompts = rng.integers(1, cfg.vocab_size,
+                               (e["requests"], e["prompt_len"])) \
+            .astype(np.int32)
+        reqs = [Request(prompt=[int(t) for t in p], request_id=i)
+                for i, p in enumerate(prompts)]
+        Engine(model, params, ServeConfig(
+            max_batch=e["max_batch"], max_len=e["max_len"],
+            max_new_tokens=e["new_tokens"])).run(reqs)
+        arrays[f"{arch}/engine_prompts"] = prompts
+        arrays[f"{arch}/engine_tokens"] = np.asarray(
+            [r.out_tokens for r in reqs], np.int32)
+    return arrays
+
+
+def test_lm_golden_rebuilds_from_reference():
+    """The committed LM golden file is the reference's: parameters,
+    prompts and greedy tokens exactly, logits within 1e-6 (float32 on
+    the CPU; XLA may vectorize sums differently on another CPU)."""
+    want = lm_reference_golden()
+    with np.load(LM_GOLDEN) as got:
+        assert sorted(got.files) == sorted(want)
+        for k, v in want.items():
+            assert got[k].dtype == v.dtype and got[k].shape == v.shape, k
+            if "logits" in k:
+                np.testing.assert_allclose(got[k], v, rtol=0, atol=1e-6,
+                                           err_msg=k)
+            else:
+                assert np.array_equal(got[k], v), k
 
 
 def committed_plans():
@@ -180,9 +267,11 @@ def main():
     GOLDEN.parent.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(GOLDEN, **reference_golden(plans))
     write_synth_reference(synth.run_sweep())
+    np.savez_compressed(LM_GOLDEN, **lm_reference_golden())
     print(f"wrote {len(plans)} plans to {PLANS}, {GOLDEN} "
-          f"({GOLDEN.stat().st_size} bytes) and {SYNTH_REFERENCE} "
-          f"({SYNTH_REFERENCE.stat().st_size} bytes)")
+          f"({GOLDEN.stat().st_size} bytes), {SYNTH_REFERENCE} "
+          f"({SYNTH_REFERENCE.stat().st_size} bytes) and {LM_GOLDEN} "
+          f"({LM_GOLDEN.stat().st_size} bytes)")
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``repro_torch`` and not
-``chip_smoke.py`` imports JAX or anything of the reference package, and
-importing the port leaves both out of ``sys.modules``.  Importing builds
+``chip_smoke.py`` imports JAX, ``ml_dtypes`` or anything of the
+reference package, and importing the port leaves them out of
+``sys.modules``.  Importing builds
 no kernel (the CPU tests import every module; nvcc runs only at first
 use on the card)."""
 
@@ -15,7 +16,7 @@ import pytest
 import repro_torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
 
 
 def _sources():
@@ -66,6 +67,14 @@ SLICE_MODULES = (
     "repro_torch.configs.paper_conv", "repro_torch.core.census",
     "repro_torch.core.synth", "repro_torch.core.correlate",
     "repro_torch.core.polyfit", "repro_torch.core.allocate",
+    # slice 3: the LM serving path
+    "repro_torch.configs.base", "repro_torch.configs.llama3_2_3b",
+    "repro_torch.configs.mamba2_1_3b", "repro_torch.models.layers",
+    "repro_torch.models.attention", "repro_torch.models.ssm",
+    "repro_torch.models.transformer", "repro_torch.models.registry",
+    "repro_torch.kernels.conv1d", "repro_torch.kernels.flash_attention",
+    "repro_torch.kernels.ops", "repro_torch.kernels.ref",
+    "repro_torch.serve.engine", "repro_torch.convert",
 )
 
 
@@ -77,8 +86,8 @@ def test_import_checks_cover_every_slice_module():
              for p in _sources()[:-1]}
     for m in SLICE_MODULES:
         assert m in mods and m in files, m
-    assert {"conv2_planes", "conv3_planes", "conv4_planes"} \
-        <= set(build.KERNELS)
+    assert {"conv2_planes", "conv3_planes", "conv4_planes",
+            "causal_conv1d", "flash_attention"} <= set(build.KERNELS)
 
 
 def test_build_names_a_library_per_source_hash():
