@@ -11,7 +11,8 @@ order (any mismatch or error raises and the exit code is non-zero):
    them, the torch, CUDA and nvcc versions, and the int32 CUDA-core rate
    from the card's SM count and maximum SM clock;
 2. build: the eight CUDA kernels from ``src/repro_torch/kernels/csrc``
-   (one nvcc each, all started together), with ``-Xptxas -v``;
+   (one nvcc each, all started together), with ``-Xptxas -v``, and the
+   count of tensor-core instructions in K8's SASS (``cuobjdump``);
 3. layer kernels (K1–K3) against their plain PyTorch versions on the
    card, with tolerance zero (``torch.equal``: the path is exact integer
    arithmetic) at the serving path's shapes at bucket 16 and on an edge
@@ -21,7 +22,9 @@ order (any mismatch or error raises and the exit code is non-zero):
    (``device_ms``, the kernel alone), beside its plain version, the
    least time the card could take (``bound_ms``) and
    ``torch.nn.functional.conv2d`` on float32 copies with TF32 off
-   (``library_ms``, exact at these widths; timed here only);
+   (``library_ms`` by events and ``library_device_ms``, the device time
+   of every kernel the library call launches, from a profiler trace;
+   exact at these widths; timed here only);
 4. plane kernels (K4–K6) the same way: at P = 1 on 32×128, at the
    quickstart layers' plane counts (out_ch·in_ch, or channel pairs ·
    in_ch) and bits, where they are timed (``library_ms``: one grouped
@@ -54,10 +57,14 @@ order (any mismatch or error raises and the exit code is non-zero):
    plain versions on the card at the full-width shapes (K7 bit-exact at
    the launches of a Mamba-2-1.3B layer: 4096 and 128 channels, a
    prefill of (1, 512) without a state and a decode step of (4, 1) with
-   one, K = 4, bf16, and their sums per layer; K8 within
-   one bf16 unit at (1, 512, 24, 128) with 8 kv heads, causal, and at
-   S = 300), timed as in phase 3 (``library_ms``:
+   one, K = 4, bf16, and their sums per layer; K8's bf16 tensor-core
+   instantiation within one bf16 unit at (1, 512, 24, 128) with 8 kv
+   heads, causal, and at S = 300; its float32 CUDA-core instantiation
+   within 2e-5 at the smoke golden's shape (2, 16, 4, 2 kv heads, 16)),
+   timed as in phase 3 (``library_ms`` and ``library_device_ms``:
    ``F.scaled_dot_product_attention`` and a depthwise ``F.conv1d``);
+   device times are read by kernel name (``conv1_layer_kernel``,
+   ``flash_attention_bf16_kernel``, ``flash_attention_f32_kernel``, ...);
    both smoke archs at float32 against the JAX reference's golden file
    ``src/repro_torch/golden/lm_reference.npz`` (logits within 2e-3,
    greedy tokens equal); then the launcher's ``serve_lm`` at full width
@@ -160,9 +167,32 @@ LM_CUT_REL_L2 = 5e-2
 # K7's design: the x, B and C convs of a Mamba layer are three launches,
 # in prefill and in each decode step
 K7_PER_MAMBA_LAYER = 3
-# K8 against its plain version in bf16: both round float32 values that
-# differ by about 1e-6, so at most one bf16 unit apart
+# K8 against its plain version in bf16: the split P keeps the two float32
+# results within about 2^-16 relative, so the bf16 outputs are at most one
+# bf16 unit apart
 K8_BF16_TOL = dict(rtol=2 ** -7, atol=1e-3)
+# K8's float32 instantiation against its plain version: the same blocked
+# online softmax, products summed in another order
+K8_F32_TOL = dict(rtol=2e-5, atol=2e-5)
+# the numbers of a timed case that its kernel's headline entry carries
+TIMES = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+         "library_ms", "library_device_ms")
+
+
+def sass_tensor_ops(name: str):
+    """How many tensor-core instructions (HMMA or HGMMA) the built
+    library of kernel ``name`` holds, from ``cuobjdump -sass``; None
+    where the toolkit has no cuobjdump or it fails (not measured)."""
+    from repro_torch.kernels import build
+    tool = Path(build.nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    out = subprocess.run([str(tool), "-sass", str(build.library_path(name))],
+                         capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        return None
+    return sum(op in line for line in out.stdout.splitlines()
+               for op in ("HMMA", "HGMMA"))
 
 
 def nvidia_smi_line() -> str:
@@ -223,13 +253,15 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def device_ms(fn, kernel_name: str, iters: int = 50):
+def device_ms(fn, kernel_name: str | None = None, iters: int = 50):
     """Mean device time per call of the CUDA kernels whose name holds
-    ``kernel_name``, from a ``torch.profiler`` trace of ``iters`` calls:
-    the kernel alone, without the host's launch cost that the CUDA-event
-    time of back-to-back calls includes.  None when the trace holds no
-    device time for it (not measured)."""
+    ``kernel_name`` (of every kernel the calls launch where it is None:
+    a library call's own device time), from a ``torch.profiler`` trace
+    of ``iters`` calls: the kernels alone, without the host's launch
+    cost that the CUDA-event time of back-to-back calls includes.  None
+    when the trace holds no device time for them (not measured)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -238,8 +270,9 @@ def device_ms(fn, kernel_name: str, iters: int = 50):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(getattr(e, "device_time_total", 0)
-                   for e in prof.key_averages() if kernel_name in e.key)
+    total_us = sum(e.device_time_total for e in prof.events()
+                   if e.device_type != DeviceType.CPU
+                   and (kernel_name is None or kernel_name in e.name))
     return total_us / iters / 1e3 if total_us else None
 
 
@@ -283,17 +316,19 @@ def _bound(nbytes, ops, d, c):
 
 
 def library_conv(x, wk):
-    """(ms, output) of one cuDNN float32 convolution of the same layer
-    (TF32 off), which is exact at these widths: the yardstick, never
-    called by the port."""
+    """(ms, device_ms, output) of one cuDNN float32 convolution of the
+    same layer (TF32 off), which is exact at these widths: the
+    yardstick, never called by the port."""
     import torch
     import torch.nn.functional as F
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     xf = x.permute(0, 3, 1, 2).float().contiguous()
     wf = wk.float().contiguous()
-    return time_ms(lambda: F.conv2d(xf, wf, padding=1), 200, warmup=10), \
-        F.conv2d(xf, wf, padding=1)
+
+    def conv():
+        return F.conv2d(xf, wf, padding=1)
+    return time_ms(conv, 200, warmup=10), device_ms(conv), conv()
 
 
 def check_kernels():
@@ -327,21 +362,19 @@ def check_kernels():
                            5, warmup=1)
         dev_ms = device_ms(lambda: kern(x, wk, data_bits=d, coeff_bits=c),
                            f"{name}_kernel")
-        lib_ms, y_lib = library_conv(x, wk)
+        lib_ms, lib_dev_ms, y_lib = library_conv(x, wk)
         lib_eq = torch.equal(y_lib.to(torch.int32), y)
         b_ms, b_by = bound(x, wk, d, c)
         case = {"shape": [n, h, w, ic], "oc": oc, "d": d, "c": c,
                 "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                "library_equal": lib_eq}
+                "library_device_ms": lib_dev_ms, "library_equal": lib_eq}
         print(f"    ms={ms:.6f} device_ms={dev_ms} plain_ms={plain_ms:.6f} "
               f"bound_ms={b_ms:.6f} ({b_by}) library_ms={lib_ms:.6f} "
-              f"library_equal={lib_eq}")
+              f"library_device_ms={lib_dev_ms} library_equal={lib_eq}")
         entries[name]["cases"].append(case)
         if pinned:
-            entries[name].update({k: case[k] for k in (
-                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")})
+            entries[name].update({k: case[k] for k in TIMES})
             entries[name]["shape"] = case["shape"] + [oc]
 
     print("[kernels] edge grid: (2, 16, 24, ic=40) -> oc=5, full signed "
@@ -386,9 +419,9 @@ def plane_operands(rng, p, h, w, d, c, n_out, *, x_range=None):
 
 
 def library_planes(x, wk, n_out):
-    """(ms, output) of one grouped cuDNN float32 convolution of the same
-    planes (groups = P, TF32 off), exact at the timed widths: the
-    yardstick, never called by the port."""
+    """(ms, device_ms, output) of one grouped cuDNN float32 convolution
+    of the same planes (groups = P, TF32 off), exact at the timed
+    widths: the yardstick, never called by the port."""
     import torch
     import torch.nn.functional as F
     torch.backends.cudnn.allow_tf32 = False
@@ -399,7 +432,7 @@ def library_planes(x, wk, n_out):
     def conv():
         return F.conv2d(xf, wf, padding=1, groups=p)
     y = conv()[0].reshape((p, n_out, h, w) if n_out > 1 else (p, h, w))
-    return time_ms(conv, 200, warmup=10), y
+    return time_ms(conv, 200, warmup=10), device_ms(conv), y
 
 
 def _comparer(entries, wrappers):
@@ -467,21 +500,19 @@ def check_plane_kernels():
                            5, warmup=1)
         dev_ms = device_ms(lambda: kern(x, wk, data_bits=d, coeff_bits=c),
                            f"{name}_kernel")
-        lib_ms, y_lib = library_planes(x, wk, n_out)
+        lib_ms, lib_dev_ms, y_lib = library_planes(x, wk, n_out)
         lib_eq = torch.equal(y_lib.to(torch.int32), y)
         b_ms, b_by = plane_bound(x, wk, n_out, d, c)
         case = {"shape": [p, 32, 128], "d": d, "c": c, "ms": ms,
                 "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": lib_ms,
-                "library_equal": lib_eq}
+                "library_device_ms": lib_dev_ms, "library_equal": lib_eq}
         print(f"    ms={ms:.6f} device_ms={dev_ms} plain_ms={plain_ms:.6f} "
               f"bound_ms={b_ms:.6f} ({b_by}) library_ms={lib_ms:.6f} "
-              f"library_equal={lib_eq}")
+              f"library_device_ms={lib_dev_ms} library_equal={lib_eq}")
         entries[name]["cases"].append(case)
         if on_plan:
-            entries[name].update({k: case[k] for k in (
-                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")})
+            entries[name].update({k: case[k] for k in TIMES})
             entries[name]["shape"] = case["shape"]
 
     print("[planes] edge grid: P=5 on (16, 24), full signed ranges with "
@@ -789,9 +820,10 @@ def _lm_bound(nbytes, flops, rate):
 def check_lm_kernels(entries):
     """Phase 8, kernels: K7 and K8 against their plain versions on the
     card at the full-width shapes, timed, into their ``entries``."""
+    import numpy as np
     import torch
     import torch.nn.functional as F
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, smoke_config
     from repro_torch.kernels import conv1d, flash_attention as fa
     from repro_torch.models.ssm import ssm_dims
 
@@ -842,16 +874,21 @@ def check_lm_kernels(entries):
                           else x.new_zeros(b, kk - 1, c), x], 1) \
             .transpose(1, 2).contiguous()
         wt = w.t().contiguous()[:, None, :]
-        lib_ms = time_ms(lambda: F.conv1d(xpad, wt, groups=c), 200,
-                         warmup=10)
+
+        def lib():
+            return F.conv1d(xpad, wt, groups=c)
+        lib_ms = time_ms(lib, 200, warmup=10)
+        lib_dev_ms = device_ms(lib)
         b_ms, b_by = _lm_bound(_nbytes(x, w, st) + y.numel() * 4,
                                2 * b * s * c * kk, FP32_FLOPS_PER_S)
         case = {"phase": phase, "shape": [b, s, c, kk],
                 "state": st is not None, "per_layer": reps, "ms": ms,
                 "device_ms": dev_ms, "plain_ms": plain_ms,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                "library_device_ms": lib_dev_ms}
         print(f"    ms={ms:.6f} device_ms={dev_ms} plain_ms={plain_ms:.6f} "
-              f"bound_ms={b_ms:.6f} ({b_by}) library_ms={lib_ms:.6f}")
+              f"bound_ms={b_ms:.6f} ({b_by}) library_ms={lib_ms:.6f} "
+              f"library_device_ms={lib_dev_ms}")
         e["cases"].append(case)
         layer = e["per_layer"][phase]
         layer["ms"] += reps * ms
@@ -859,51 +896,70 @@ def check_lm_kernels(entries):
             or layer["device_ms"] is None \
             else layer["device_ms"] + reps * dev_ms
         if phase == "prefill" and c == inner:   # the headline: conv_x
-            e.update({k_: case[k_] for k_ in (
-                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "shape")})
+            e.update({k_: case[k_] for k_ in TIMES + ("shape",)})
     print(f"  per Mamba layer (conv_x + conv_B + conv_C): "
           f"{json.dumps(e['per_layer'])}")
 
     print(f"[lm kernels] flash_attention against its plain version "
-          f"(bf16 {K8_BF16_TOL})")
+          f"(bf16 on the tensor cores {K8_BF16_TOL}, float32 on the CUDA "
+          f"cores {K8_F32_TOL})")
     e = entries["flash_attention"]
-    for b, s, h, kh, d in ((1, 512, 24, 8, 128), (1, 300, 24, 8, 128)):
-        q, k, v = randn(b, s, h, d), randn(b, s, kh, d), randn(b, s, kh, d)
+    e["instantiations"] = {}
+    # the Llama-3.2-3B prefill (bf16) and the smoke golden's first prefill
+    # (float32: the only float32 K8 launches of the script)
+    with np.load(LM_GOLDEN) as z:
+        gb, gs = z["llama3.2-3b/tokens"].shape
+    scfg = smoke_config("llama3.2-3b")
+    for b, s, h, kh, d, dtype in (
+            (1, 512, 24, 8, 128, torch.bfloat16),
+            (1, 300, 24, 8, 128, torch.bfloat16),
+            (gb, gs, scfg.n_heads, scfg.n_kv_heads, scfg.head_dim,
+             torch.float32)):
+        q, k, v = (torch.randn(b, s, n, d, generator=g, device="cuda")
+                   .to(dtype) for n in (h, kh, kh))
+        bf16 = dtype == torch.bfloat16
+        tol = K8_BF16_TOL if bf16 else K8_F32_TOL
+        kname = "flash_attention_bf16_kernel" if bf16 \
+            else "flash_attention_f32_kernel"
         out = fa.flash_attention(q, k, v, causal=True)
         torch.cuda.synchronize()
         want = fa.flash_attention_plain(q, k, v, causal=True)
         err = float((out.float() - want.float()).abs().max())
-        print(f"  flash_attention ({b},{s},{h},{d}) kv {kh} causal bf16: "
-              f"max_abs_err={err}")
-        torch.testing.assert_close(out.float(), want.float(), **K8_BF16_TOL)
+        label = f"({b},{s},{h},{d}) kv {kh} causal {str(dtype)[6:]}"
+        print(f"  flash_attention {label}: max_abs_err={err}")
+        torch.testing.assert_close(out.float(), want.float(), **tol)
         e["max_abs_err"] = max(e["max_abs_err"], err)
         ms = time_ms(lambda: fa.flash_attention(q, k, v), 100, warmup=5)
         plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v), 10,
                            warmup=2)
-        dev_ms = device_ms(lambda: fa.flash_attention(q, k, v),
-                           "flash_attention_kernel")
+        dev_ms = device_ms(lambda: fa.flash_attention(q, k, v), kname)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), 100, warmup=5)
-        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                             enable_gqa=True)
-        lib_err = float((lib.transpose(1, 2).float() - out.float()).abs()
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+        lib_ms = time_ms(sdpa, 100, warmup=5)
+        lib_dev_ms = device_ms(sdpa)
+        lib_err = float((sdpa().transpose(1, 2).float() - out.float()).abs()
                         .max())
-        # the causal half of 4·B·H·S·T·D
+        # the causal half of 4·B·H·S·T·D, bf16 on the tensor cores,
+        # float32 on the CUDA cores
         b_ms, b_by = _lm_bound(_nbytes(q, k, v, out), 2 * b * h * s * s * d,
-                               BF16_FLOPS_PER_S)
-        case = {"shape": [b, s, h, kh, d], "ms": ms, "device_ms": dev_ms,
+                               BF16_FLOPS_PER_S if bf16 else FP32_FLOPS_PER_S)
+        case = {"shape": [b, s, h, kh, d], "dtype": str(dtype)[6:],
+                "kernel": kname, "ms": ms, "device_ms": dev_ms,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": lib_ms, "library_max_abs_diff": lib_err}
+                "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
+                "library_max_abs_diff": lib_err}
         print(f"    ms={ms:.6f} device_ms={dev_ms} plain_ms={plain_ms:.6f} "
               f"bound_ms={b_ms:.6f} ({b_by}) library_ms={lib_ms:.6f} "
+              f"library_device_ms={lib_dev_ms} "
               f"library_max_abs_diff={lib_err}")
         e["cases"].append(case)
+        if s == 512 or not bf16:
+            e["instantiations"][case["dtype"]] = case
         if s == 512:
-            e.update({k_: case[k_] for k_ in (
-                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "shape")})
+            e.update({k_: case[k_] for k_ in TIMES + ("shape",)})
 
 
 def _lm_golden_params(z, arch, cfg, device):
@@ -1179,6 +1235,9 @@ def main() -> int:
                 if "ptxas info" in line and ("Used" in line
                                              or "Compiling" in line):
                     print(f"  {name}: {line.strip()}")
+        tensor_ops = sass_tensor_ops("flash_attention")
+        print(f"[build] flash_attention: {tensor_ops} tensor-core "
+              f"instructions (HMMA/HGMMA) in its SASS (cuobjdump -sass)")
 
         entries = check_kernels()
         entries.update(check_plane_kernels())
@@ -1191,10 +1250,11 @@ def main() -> int:
         lm = lm_full_width(entries)
         lm_cut = lm_plain_vs_kernel(entries)
         keys = ("name", "route", "source", "replaces", "launches",
-                "max_abs_err", "equal", "ms", "device_ms", "plain_ms",
-                "bound_ms", "bound_by", "library_ms", "shape",
-                "launches_by_path", "cases")
+                "max_abs_err", "equal") + TIMES + (
+                "shape", "launches_by_path", "cases")
         line = {"kernels": [{k: e[k] for k in keys}
+                            | ({"instantiations": e["instantiations"]}
+                               if "instantiations" in e else {})
                             for e in entries.values()],
                 "images_per_s": rates, "ms_per_step": step_ms,
                 "serve_profile": prof, "plan_on_card": planned,

@@ -211,7 +211,9 @@ def conv1_layer(x: torch.Tensor, w: torch.Tensor, *, data_bits: int,
     """The multiply-free Conv1 block over a whole layer: x (N, H, W, ic)
     container int, w (oc, ic, 3, 3) → exact int32 (N, oc, H, W) =
     Σ_ic shift-add conv(x[..., ic], w[oc, ic]).  One CUDA launch on the
-    card (``csrc/conv1_layer.cu``); the plain version on the CPU."""
+    card (``csrc/conv1_layer.cu``, which computes each shift-add plane as
+    the same sum modulo 2^32 of taps times w' = sign(w)·(|w| & mask));
+    the plain version on the CPU."""
     check_layer_operands("conv1_layer", x, w)
     if x.device.type == "cpu":
         return conv1_layer_plain(x, w, data_bits=data_bits,

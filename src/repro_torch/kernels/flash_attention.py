@@ -11,7 +11,10 @@ any S and T: rows past S are not computed and keys past T are masked.
 
 A wrapper runs the plain version for a tensor on the CPU and launches
 the kernel (``csrc/flash_attention.cu``) for a tensor on the card (or
-raises); ``flash_attention.launches`` counts the launches.
+raises); ``flash_attention.launches`` counts the launches.  The kernel
+has two instantiations behind one entry, chosen by the dtype: bfloat16
+runs on the tensor cores (P·V as P_hi·V + P_lo·V, so P keeps about 16
+bits), float32 on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -95,8 +98,10 @@ _ARGTYPES = (_P, _P, _P, _P) + (_I,) * 7 + (ctypes.c_float, _I, _P)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """Attention of q (B, S, H, Dh) over k, v (B, T, KH, Dh) → (B, S, H,
-    Dh) in q's dtype (float32 or bfloat16).  One CUDA launch on the card;
-    the plain version on the CPU."""
+    Dh) in q's dtype (float32 or bfloat16).  One CUDA launch on the card,
+    routed by dtype: bfloat16 to the tensor-core kernel, float32 to the
+    CUDA-core kernel; a launch the kernel refuses raises and never falls
+    back to the other.  The plain version on the CPU."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)

@@ -67,6 +67,29 @@ def test_kernel_matches_plain_on_card(cuda, name, d, c):
         coeff_bits=c).numpy())
 
 
+# Conv1 at the shapes its paths launch: the serving layer at bucket 1
+# and the per-plane call (one image, ic = oc = 1); and more than one
+# register tile of output channels over more than one staged chunk of
+# input channels
+CONV1_PATH_CASES = [((1, 32, 128, 8), 8, 8, 6), ((1, 32, 128, 1), 1, 8, 6),
+                    ((2, 20, 40, 12), 17, 6, 5)]
+
+
+@pytest.mark.parametrize("shape,oc,d,c", CONV1_PATH_CASES,
+                         ids=["bucket1", "per_plane", "oc_tiles"])
+def test_conv1_layer_at_path_shapes_on_card(cuda, shape, oc, d, c):
+    rng = np.random.default_rng(shape[-1] + oc)
+    x, w = operands(rng, shape, oc, d, c)
+    xc, wc = torch.from_numpy(x).to(cuda), torch.from_numpy(w).to(cuda)
+    before = conv2d.conv1_layer.launches
+    y = conv2d.conv1_layer(xc, wc, data_bits=d, coeff_bits=c)
+    torch.cuda.synchronize()
+    assert conv2d.conv1_layer.launches == before + 1
+    assert tuple(y.shape) == (shape[0], oc, *shape[1:3])
+    assert torch.equal(y, conv2d.conv1_layer_plain(xc, wc, data_bits=d,
+                                                   coeff_bits=c))
+
+
 @pytest.mark.parametrize("name", sorted(KERNELS))
 def test_kernel_container_range_int16_inputs_on_card(cuda, name):
     """Inputs over the whole int16 container at d=3 (Conv1's int16 plane
@@ -275,22 +298,29 @@ def test_conv1d_kernel_matches_plain_on_card(cuda, b, s, c, k, with_state,
 
 # (B, S, T, H, KH, D, causal, dtype): the Llama-3.2-3B prefill shape, a
 # length that is not a tile multiple, the smoke width, D = 8 and 256,
-# MQA, S != T
+# MQA, S != T; bf16 (the tensor-core kernel) also at D = 8 and 72 (head
+# dims padded to 16 and 80), at D = 36 (not a multiple of 8: the tiles
+# load without cp.async) and non-causal with S > T
 FLASH_CASES = [(1, 512, 512, 24, 8, 128, True, torch.bfloat16),
                (1, 300, 300, 24, 8, 128, True, torch.bfloat16),
                (2, 16, 16, 4, 2, 16, True, torch.float32),
                (2, 48, 48, 4, 4, 8, True, torch.float32),
                (2, 256, 256, 8, 1, 32, False, torch.float32),
                (1, 100, 300, 4, 2, 256, True, torch.float32),
-               (1, 65, 130, 8, 4, 256, False, torch.bfloat16)]
+               (1, 65, 130, 8, 4, 256, False, torch.bfloat16),
+               (2, 100, 100, 4, 2, 8, True, torch.bfloat16),
+               (1, 130, 130, 6, 3, 72, True, torch.bfloat16),
+               (1, 77, 77, 4, 4, 36, True, torch.bfloat16),
+               (2, 200, 70, 8, 1, 128, False, torch.bfloat16)]
 
 
 @pytest.mark.parametrize("b,s,t,h,kh,d,causal,dtype", FLASH_CASES)
 def test_flash_kernel_matches_plain_on_card(cuda, b, s, t, h, kh, d, causal,
                                             dtype):
     """float32: 2e-5 (the same blocked online softmax, products summed in
-    another order); bfloat16: both round float32 values that differ by
-    about 1e-6, so at most one bf16 unit apart (2^-7 relative)."""
+    another order); bfloat16: the tensor-core kernel's split P keeps its
+    float32 result within about 2^-16 relative of the plain version's, so
+    the two round at most one bf16 unit apart (2^-7 relative)."""
     g = torch.Generator(device=cuda).manual_seed(s + t + d)
     q = torch.randn(b, s, h, d, generator=g, device=cuda).to(dtype)
     k = torch.randn(b, t, kh, d, generator=g, device=cuda).to(dtype)
