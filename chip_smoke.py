@@ -16,15 +16,20 @@ order (any mismatch or error raises and the exit code is non-zero):
 3. layer kernels (K1–K3) against their plain PyTorch versions on the
    card, with tolerance zero (``torch.equal``: the path is exact integer
    arithmetic) at the serving path's shapes at bucket 16 and on an edge
-   grid of bit widths with odd out_ch and in_ch = 40; at the serving
-   shapes each kernel is timed with CUDA events over back-to-back calls
-   (``ms``, host launch cost included) and from a profiler trace
-   (``device_ms``, the kernel alone), beside its plain version, the
-   least time the card could take (``bound_ms``) and
-   ``torch.nn.functional.conv2d`` on float32 copies with TF32 off
-   (``library_ms`` by events and ``library_device_ms``, the device time
-   of every kernel the library call launches, from a profiler trace;
-   exact at these widths; timed here only);
+   grid of bit widths with odd out_ch, at in_ch = 40 and at the
+   unaligned in_ch = 3; K1 and K2 in both their entries, the int32
+   accumulator and the layer with its requantize (``*_requant``, which
+   the serving path runs); at the serving shapes each entry is timed
+   with CUDA events over back-to-back calls (``ms``, host launch cost
+   included) and from a profiler trace (``device_ms``, the kernel
+   alone), beside its plain version, the least time the card could
+   take (``bound_ms``) and ``torch.nn.functional.conv2d`` on float32
+   copies with TF32 off (``library_ms`` by events and
+   ``library_device_ms``, the device time of every kernel the library
+   calls launch, from a profiler trace; exact at these widths; for a
+   requantizing entry followed by the torch shift, clamp, cast and
+   channels-last copy; timed here only); K1's route at each shape
+   (dp4a for int8 dots) is printed;
 4. plane kernels (K4–K6) the same way: at P = 1 on 32×128, at the
    quickstart layers' plane counts (out_ch·in_ch, or channel pairs ·
    in_ch) and bits, where they are timed (``library_ms``: one grouped
@@ -37,11 +42,13 @@ order (any mismatch or error raises and the exit code is non-zero):
    outputs (``src/repro_torch/golden/quickstart_reference.npz``) and the
    port's ``cnn_forward_ref`` on the CPU; every launch counter is set to
    0 just before each plan is served and read just after, and each
-   kernel of the path must have launched at least once per forward;
+   layer must have launched its entry once per forward (K1 and K2
+   through their requantizing entries, never the int32 ones);
    then images/s from passes of 4,096 requests per plan (unpinned,
    pinned, pinned, unpinned, twice over), and a profiler trace of one
-   pinned pass for the device time per step, by kernel, and the idle
-   share;
+   pass of each plan for the device time per step, by kernel, the idle
+   share and the device operations per step (how many of them torch
+   kernels);
 6. the per-plane path on both committed plans with the golden weights:
    ``cnn_forward_loop`` (one plane-kernel launch per plane) and the
    single-image ``cnn_forward`` of every golden image equal the golden
@@ -127,7 +134,10 @@ MAIN_CASES = (
     ("conv1_layer", 16, 32, 128, 8, 8, 8, 6, True),
     ("packed_dot_layer", 16, 32, 128, 8, 4, 6, 4, True),
 )
-# (d, c) edge grid, run at (2, 16, 24, ic=40) → oc=5
+# the quickstart layers' shift (``ConvLayerSpec.shift``), at which the
+# requantizing entries are timed
+SERVE_SHIFT = 7
+# (d, c) edge grid, run at (2, 16, 24, ic=40) and (2, 16, 23, 3) → oc=5
 EDGE_BITS = ((3, 3), (3, 8), (6, 6), (8, 8), (9, 8), (8, 9), (16, 16),
              (12, 16), (16, 12))
 REPLACES = {
@@ -151,6 +161,13 @@ PLANE_CASES = (
     ("conv4_planes", 4, 8, 6, False), ("conv4_planes", 32, 8, 6, False),
     ("conv4_planes", 16, 6, 4, True),
 )
+# the launches of one served forward of each committed plan, by entry:
+# K1 and K2 only through their requantizing entries
+SERVE_LAUNCHES = {
+    UNPINNED: {"fused_dot_layer_requant": 3},
+    PINNED: {"fused_dot_layer_requant": 1, "conv1_layer": 1,
+             "packed_dot_layer_requant": 1},
+}
 # the pins of the planned variant that runs conv2 (K4) and conv1 (K3)
 PINNED_PLAN_PINS = {0: "conv2", 1: "conv1", 2: "conv3"}
 SERVED_FROM_OWN_PLAN = 16
@@ -276,20 +293,22 @@ def device_ms(fn, kernel_name: str | None = None, iters: int = 50):
     return total_us / iters / 1e3 if total_us else None
 
 
-def bound(x, wk, d, c):
+def bound(x, wk, d, c, out_itemsize=4):
     """(bound_ms, bound_by): the larger of the bytes the layer must move
-    (x and w read once, the int32 output written once) over the memory
-    rate and the operations its function needs over the peak rate of
-    their type.  All three kernels compute a 3x3 convolution of in_ch
-    into out_ch (the shift-adds and the packing are how the reference
-    computes it, not what it computes): a multiply and an add per tap,
-    input channel and output, at the int8 rate where ``_dot_dtype``
-    takes int8 operands, else at the CUDA-core rate (``int32_rate``)."""
+    (x and w read once, the output written once: the int32 accumulator,
+    or for a requantizing entry (``out_itemsize`` 1 or 2) the next
+    layer's container) over the memory rate and the operations its
+    function needs over the peak rate of their type.  All three kernels
+    compute a 3x3 convolution of in_ch into out_ch (the shift-adds and
+    the packing are how the reference computes it, not what it
+    computes): a multiply and an add per tap, input channel and output,
+    at the int8 rate where ``_dot_dtype`` takes int8 operands, else at
+    the CUDA-core rate (``int32_rate``)."""
     n, h, w, ic = x.shape
     oc = wk.shape[0]
     pix = n * h * w
     nbytes = (x.numel() * x.element_size() + wk.numel() * wk.element_size()
-              + pix * oc * 4)
+              + pix * oc * out_itemsize)
     return _bound(nbytes, 2 * pix * oc * ic * 9, d, c)
 
 
@@ -331,6 +350,32 @@ def library_conv(x, wk):
     return time_ms(conv, 200, warmup=10), device_ms(conv), conv()
 
 
+def library_conv_requant(x, wk, shift, d):
+    """(ms, device_ms) of the same function as a requantizing entry from
+    library calls: the cuDNN convolution of ``library_conv``, then the
+    torch shift, clamp, cast and channels-last copy (``requantize``).
+    Timed here only."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.conv2d import requantize
+    xf = x.permute(0, 3, 1, 2).float().contiguous()
+    wf = wk.float().contiguous()
+
+    def conv():
+        return requantize(F.conv2d(xf, wf, padding=1).to(torch.int32),
+                          shift, d)
+    return time_ms(conv, 200, warmup=10), device_ms(conv)
+
+
+def device_name(name, d, c):
+    """The device kernel an entry launches at d, c: K1's is
+    ``fused_dp4a_kernel`` or ``fused_imad_kernel`` by its route."""
+    from repro_torch.blocks import base
+    if name == "fused_dot_layer":
+        return f"fused_{base.fused_dot_route(d, c)}_kernel"
+    return f"{name}_kernel"
+
+
 def check_kernels():
     """Phase 3.  Returns {kernel: entry} for the kernels line."""
     import numpy as np
@@ -345,9 +390,33 @@ def check_kernels():
         "packed_dot_layer": (base.packed_dot_layer,
                              base.packed_dot_layer_plain),
     }
+    requant = {
+        "fused_dot_layer": (base.fused_dot_layer_requant,
+                            base.fused_dot_layer_requant_plain),
+        "packed_dot_layer": (base.packed_dot_layer_requant,
+                             base.packed_dot_layer_requant_plain),
+    }
     entries = {k: kernel_entry(k) for k in wrappers}
     compare = _comparer(entries, wrappers)
     rng = np.random.default_rng(0)
+
+    def compare_requant(name, label, x, wk, d, c, shift, **kw):
+        kern, plain = requant[name]
+        args = dict(data_bits=d, coeff_bits=c, shift=shift, out_bits=d)
+        y = kern(x, wk, **args, **kw)
+        torch.cuda.synchronize()
+        y_plain = plain(x, wk, **args)
+        err = int((y.to(torch.int64) - y_plain.to(torch.int64)).abs()
+                  .max()) if y.numel() else 0
+        eq = torch.equal(y, y_plain)
+        print(f"  {name + '_requant':24s} {label:34s} shift={shift} "
+              f"equal={eq} max_abs_err={err}")
+        if not eq:
+            raise AssertionError(f"{name}_requant disagrees with its plain "
+                                 f"version at {label}, shift {shift}: "
+                                 f"max_abs_err={err}")
+        entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"],
+                                           err)
 
     print("[kernels] main-path shapes at bucket 16, against the plain "
           "versions (tolerance 0)")
@@ -361,7 +430,7 @@ def check_kernels():
         plain_ms = time_ms(lambda: plain(x, wk, data_bits=d, coeff_bits=c),
                            5, warmup=1)
         dev_ms = device_ms(lambda: kern(x, wk, data_bits=d, coeff_bits=c),
-                           f"{name}_kernel")
+                           device_name(name, d, c))
         lib_ms, lib_dev_ms, y_lib = library_conv(x, wk)
         lib_eq = torch.equal(y_lib.to(torch.int32), y)
         b_ms, b_by = bound(x, wk, d, c)
@@ -376,27 +445,63 @@ def check_kernels():
         if pinned:
             entries[name].update({k: case[k] for k in TIMES})
             entries[name]["shape"] = case["shape"] + [oc]
+        if name not in requant:
+            continue
+        # the requantizing entry, as LayerLaunch runs it
+        kern_r, plain_r = requant[name]
+        args = dict(data_bits=d, coeff_bits=c, shift=SERVE_SHIFT, out_bits=d)
+        compare_requant(name, label, x, wk, d, c, SERVE_SHIFT)
+        ms = time_ms(lambda: kern_r(x, wk, **args), 200, warmup=10)
+        plain_ms = time_ms(lambda: plain_r(x, wk, **args), 5, warmup=1)
+        dev_ms = device_ms(lambda: kern_r(x, wk, **args),
+                           device_name(name, d, c))
+        lib_ms, lib_dev_ms = library_conv_requant(x, wk, SERVE_SHIFT, d)
+        b_ms, b_by = bound(x, wk, d, c,
+                           conv2d.container_dtype(d).itemsize)
+        rcase = {"shape": [n, h, w, ic], "oc": oc, "d": d, "c": c,
+                 "shift": SERVE_SHIFT, "ms": ms, "device_ms": dev_ms,
+                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": lib_ms, "library_device_ms": lib_dev_ms}
+        print(f"    requant: ms={ms:.6f} device_ms={dev_ms} "
+              f"plain_ms={plain_ms:.6f} bound_ms={b_ms:.6f} ({b_by}) "
+              f"library_ms={lib_ms:.6f} library_device_ms={lib_dev_ms}")
+        entries[name].setdefault("requant_cases", []).append(rcase)
+        if pinned:
+            entries[name]["requant"] = {k: rcase[k] for k in TIMES} | {
+                "shape": case["shape"] + [oc]}
+        if name == "fused_dot_layer":
+            case["dot_route"] = base.fused_dot_route(d, c)
+            print(f"    K1 route at {label}: {case['dot_route']}")
 
     print("[kernels] edge grid: (2, 16, 24, ic=40) -> oc=5, full signed "
-          "ranges with the extremes")
+          "ranges with the extremes, and the unaligned (2, 16, 23, 3) -> 5")
     for d, c in EDGE_BITS:
-        x, wk = operands(rng, 2, 16, 24, 40, 5, d, c)
-        for name in wrappers:
-            if name == "packed_dot_layer" \
-                    and conv2d._pack_shift(d, c) > conv2d.PACK_SHIFT_BUDGET:
-                try:
-                    base.packed_dot_layer(x, wk, data_bits=d, coeff_bits=c)
-                except ValueError:
-                    print(f"  {name:17s} d{d}c{c}: refused (pack shift "
-                          f"exceeds 31 bits), as the reference raises")
-                    continue
-                raise AssertionError(f"{name} took d{d}c{c}")
-            compare(name, f"d{d}c{c}", x, wk, d, c)
+        for shape in ((2, 16, 24, 40), (2, 16, 23, 3)):
+            x, wk = operands(rng, *shape, 5, d, c)
+            for name in wrappers:
+                label = f"{tuple(shape)} d{d}c{c}"
+                if name == "packed_dot_layer" and conv2d._pack_shift(d, c) \
+                        > conv2d.PACK_SHIFT_BUDGET:
+                    try:
+                        base.packed_dot_layer(x, wk, data_bits=d,
+                                              coeff_bits=c)
+                    except ValueError:
+                        print(f"  {name:17s} {label}: refused (pack shift "
+                              f"exceeds 31 bits), as the reference raises")
+                        continue
+                    raise AssertionError(f"{name} took d{d}c{c}")
+                compare(name, label, x, wk, d, c)
+                if name in requant:
+                    for shift in (0, 40):
+                        compare_requant(name, label, x, wk, d, c, shift)
     # int16 inputs over the whole container at d=3: the Conv1 plane
     # accumulator is int16 there and wraps as the reference's does
     x, wk = operands(rng, 2, 16, 24, 40, 5, 3, 8, x_range=(-32768, 32767))
     for name in wrappers:
         compare(name, "d3c8 container-range x (int16)", x, wk, 3, 8)
+        if name in requant:
+            compare_requant(name, "d3c8 container-range x (int16)", x, wk,
+                            3, 8, SERVE_SHIFT)
     return entries
 
 
@@ -576,10 +681,11 @@ def serve_plans(entries):
     golden = np.load(GOLDEN)
     for stem in (UNPINNED, PINNED):
         serve.run_cnn(serve_args(stem, REQUESTS))          # warm-up pass
-        want = {"fused_dot_layer"} | (
-            {"conv1_layer", "packed_dot_layer"} if stem == PINNED else set())
+        # each layer's launch per forward, and none through the int32
+        # entries of K1 and K2: their layers run the requantizing ones
+        per_forward = SERVE_LAUNCHES[stem]
         engine, reqs, _ = drive(
-            entries, f"serve {stem}", want,
+            entries, f"serve {stem}", set(per_forward),
             lambda: serve.run_cnn(serve_args(stem, REQUESTS)))
         forwards = sum(engine.stats()["bucket_hits"].values())
         xs = np.stack([r.image for r in reqs])
@@ -596,11 +702,12 @@ def serve_plans(entries):
         if not np.array_equal(ys, y_ref):
             raise AssertionError(f"{stem}: outputs differ from the port's "
                                  f"cnn_forward_ref on the CPU")
-        for k in want:
-            n = entries[k]["launches_by_path"][f"serve {stem}"]
-            if n < forwards:
+        got = LAUNCHES[f"serve {stem}"]
+        for k, v in got.items():
+            if v != per_forward.get(k, 0) * forwards:
                 raise AssertionError(
-                    f"{stem}: {k} launched {n} times in {forwards} forwards")
+                    f"{stem}: {k} launched {v} times in {forwards} forwards, "
+                    f"want {per_forward.get(k, 0)} per forward")
         print(f"[serve] {stem}: {forwards} forwards; {len(reqs)} outputs "
               f"equal cnn_forward_ref (CPU), the first 8 equal the JAX "
               f"golden")
@@ -634,10 +741,12 @@ def serve_profile(stem, step_ms):
                              ProfilerActivity.CUDA]) as prof:
         engine, _, _ = serve.run_cnn(serve_args(stem, PROFILED_REQUESTS))
         torch.cuda.synchronize()
-    by_name = {}
+    by_name, ops, torch_ops = {}, 0, 0
     for e in prof.events():
         if e.device_type != DeviceType.CPU and e.device_time_total > 0:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+            ops += 1
+            torch_ops += "at::native" in e.name
     if not by_name:
         print("[profile] the trace holds no device time: not measured")
         return None
@@ -648,23 +757,33 @@ def serve_profile(stem, step_ms):
     result = {"plan": stem, "steps": steps, "device_ms_per_step": busy_ms,
               "wall_ms_per_step": wall_ms,
               "idle_share": 1.0 - busy_ms / wall_ms,
+              "device_ops_per_step": ops / steps,
+              "torch_kernels_per_step": torch_ops / steps,
               "top_ms_per_step": [[k[:80], v / 1e3 / steps]
                                   for k, v in top]}
     print(f"[profile] {stem}: {busy_ms:.6f} ms of device time per step "
           f"against {wall_ms:.6f} ms of wall time per step (untraced): "
-          f"idle share {result['idle_share']:.4f}")
+          f"idle share {result['idle_share']:.4f}; "
+          f"{result['device_ops_per_step']} device ops per step, "
+          f"{result['torch_kernels_per_step']} of them torch kernels")
     for k, v in result["top_ms_per_step"]:
         print(f"  {v:.6f} ms/step  {k}")
     return result
 
 
+# every path's launches by entry, as ``drive`` read them
+LAUNCHES = {}
+
+
 def counters():
-    """Every kernel wrapper of the port, by kernel name."""
+    """Every kernel wrapper of the port, by entry name."""
     from repro_torch.blocks import base
     from repro_torch.kernels import conv1d, conv2d, flash_attention
     return {"conv1_layer": conv2d.conv1_layer,
             "fused_dot_layer": base.fused_dot_layer,
+            "fused_dot_layer_requant": base.fused_dot_layer_requant,
             "packed_dot_layer": base.packed_dot_layer,
+            "packed_dot_layer_requant": base.packed_dot_layer_requant,
             "conv2_planes": conv2d.conv2_planes,
             "conv3_planes": conv2d.conv3_planes,
             "conv4_planes": conv2d.conv4_planes,
@@ -674,9 +793,11 @@ def counters():
 
 def drive(entries, label, want, fn):
     """Run one path ``fn()`` with every launch counter set to 0 just
-    before it and read just after; fail if a kernel in ``want`` was not
-    launched; add the counts to the kernels' entries.  Returns what
-    ``fn`` returns."""
+    before it and read just after; fail if an entry in ``want`` was not
+    launched; add the counts to the kernels' entries (a kernel's
+    launches are those of all its entries, ``launches_by_entry`` keeps
+    them apart).  Returns what ``fn`` returns."""
+    from repro_torch.kernels import build
     fns = counters()
     for f in fns.values():
         f.launches = 0
@@ -686,10 +807,15 @@ def drive(entries, label, want, fn):
     if missing:
         raise AssertionError(f"{label}: {missing} never launched "
                              f"({launches})")
+    LAUNCHES[label] = launches
     for k, v in launches.items():
-        e = entries.setdefault(k, kernel_entry(k))
+        kern = build.library_of(k)
+        e = entries.setdefault(kern, kernel_entry(kern))
         e["launches"] += v
-        e.setdefault("launches_by_path", {})[label] = v
+        by_path = e.setdefault("launches_by_path", {})
+        by_path[label] = by_path.get(label, 0) + v
+        if kern in build.ENTRIES.values():
+            e.setdefault("launches_by_entry", {}).setdefault(label, {})[k] = v
     print(f"[{label}] launches {launches}")
     return out
 
@@ -796,7 +922,7 @@ def plan_on_card(entries):
                 "bits": plan.bits(), "validate": vals}
 
     want = {"conv1_layer", "conv2_planes", "conv3_planes", "conv4_planes",
-            "fused_dot_layer"}
+            "fused_dot_layer_requant"}
     return drive(entries, "plan on the card", want, run)
 
 
@@ -1242,7 +1368,8 @@ def main() -> int:
         entries = check_kernels()
         entries.update(check_plane_kernels())
         rates, step_ms = serve_plans(entries)
-        prof = serve_profile(PINNED, step_ms[PINNED])
+        prof = {stem: serve_profile(stem, step_ms[stem])
+                for stem in (PINNED, UNPINNED)}
         per_plane_forwards(entries)
         planned = plan_on_card(entries)
         check_lm_kernels(entries)
@@ -1252,9 +1379,10 @@ def main() -> int:
         keys = ("name", "route", "source", "replaces", "launches",
                 "max_abs_err", "equal") + TIMES + (
                 "shape", "launches_by_path", "cases")
+        extra = ("instantiations", "requant", "requant_cases",
+                 "launches_by_entry")
         line = {"kernels": [{k: e[k] for k in keys}
-                            | ({"instantiations": e["instantiations"]}
-                               if "instantiations" in e else {})
+                            | {k: e[k] for k in extra if k in e}
                             for e in entries.values()],
                 "images_per_s": rates, "ms_per_step": step_ms,
                 "serve_profile": prof, "plan_on_card": planned,

@@ -9,14 +9,19 @@ Port of ``repro.blocks.base``.  A block carries the paper's metadata
 * ``apply_batched`` on one (H, W, in_ch) image — every (out_ch, in_ch)
   plane (channel pairs for dual blocks) in one plane-kernel launch, then
   the sum over in_ch, as the reference's vmapped ``_apply_batched``;
-* ``apply_batched`` on an (N, H, W, in_ch) batch — the serving path:
-  ``batched_layer``, by default the block's whole-layer kernel
-  (``layer_kernel``); the dot blocks override it, as in the reference,
-  with ``fused_dot_layer`` and ``packed_dot_layer`` — CUDA kernels here,
-  each with its plain PyTorch version beside it.
+* ``apply_batched`` on an (N, H, W, in_ch) batch: ``batched_layer``,
+  by default the block's whole-layer kernel (``layer_kernel``); the dot
+  blocks override it, as in the reference, with ``fused_dot_layer`` and
+  ``packed_dot_layer`` — CUDA kernels here, each with its plain PyTorch
+  version beside it;
+* ``apply_batched_requant`` — the serving path (``runtime.LayerLaunch``):
+  the layer and its requantize, ``requantize(apply_batched(...))``.
+  The dot blocks run it as one launch, ``fused_dot_layer_requant`` and
+  ``packed_dot_layer_requant``, whose epilogue writes the next layer's
+  channels-last container.
 
-Every path returns the exact int32 accumulator, Σ_ic conv(x[..., ic],
-w[oc, ic]).  ``kernel_body`` hands the census (``core.census``) the
+``apply`` and ``apply_batched`` return the exact int32 accumulator,
+Σ_ic conv(x[..., ic], w[oc, ic]).  ``kernel_body`` hands the census (``core.census``) the
 block's plain row-tile body, the counterpart of the reference's Pallas
 body.
 """
@@ -185,6 +190,27 @@ class ConvBlock:
         acc = conv2d.wrap_int(y.reshape(pairs, ic, 2, h, wd).sum(dim=1))
         return acc.reshape(pairs * 2, h, wd)[:oc].to(torch.int32)
 
+    def apply_batched_requant(self, x, w, *, data_bits: int,
+                              coeff_bits: int, shift: int, tile_h: int = 16):
+        """One CNN layer on an (N, H, W, in_ch) batch and its requantize:
+        ``conv2d.requantize(apply_batched(x, w, ...), shift, data_bits)``,
+        the next layer's activations (N, H, W, out_ch) in
+        ``container_dtype(data_bits)``, through ``batched_layer_requant``:
+        one launch for the dot blocks."""
+        self._validate_layer(x, w, data_bits, coeff_bits, tile_h)
+        return self.batched_layer_requant(x, w, data_bits=data_bits,
+                                          coeff_bits=coeff_bits, shift=shift)
+
+    def batched_layer_requant(self, x, w, *, data_bits: int,
+                              coeff_bits: int, shift: int):
+        """Whole-batch layer and requantize: x (N, H, W, in_ch) → (N, H,
+        W, out_ch) in ``container_dtype(data_bits)``.  Default:
+        ``batched_layer``, then ``conv2d.requantize``; the dot blocks
+        override this with the requantizing entries of their kernels."""
+        return conv2d.requantize(
+            self.batched_layer(x, w, data_bits=data_bits,
+                               coeff_bits=coeff_bits), shift, data_bits)
+
     def batched_layer(self, x, w, *, data_bits: int, coeff_bits: int,
                       tile_h: int = 16):
         """Whole-batch layer execution: x (N, H, W, in_ch) → exact int32
@@ -207,8 +233,12 @@ class ConvBlock:
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # x, w, out, x_int16, w_int16, n, h, w, ic, oc, stream
 _FUSED_ARGTYPES = (_P, _P, _P) + (_I,) * 7 + (_P,)
-# x, w, out, x_int16, w_int16, n, h, w, ic, oc, shift, stream
+# the same, then shift, out_bits
+_FUSED_REQUANT_ARGTYPES = (_P, _P, _P) + (_I,) * 9 + (_P,)
+# x, w, out, x_int16, w_int16, n, h, w, ic, oc, pack_shift, stream
 _PACKED_ARGTYPES = (_P, _P, _P) + (_I,) * 8 + (_P,)
+# the same, then shift, out_bits
+_PACKED_REQUANT_ARGTYPES = (_P, _P, _P) + (_I,) * 10 + (_P,)
 
 
 def _layer_taps(x: torch.Tensor) -> torch.Tensor:
@@ -217,6 +247,17 @@ def _layer_taps(x: torch.Tensor) -> torch.Tensor:
     xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1)).permute(0, 2, 3, 1)
     return torch.stack([xp[:, di:di + h, dj:dj + wd, :]
                         for di in range(3) for dj in range(3)], dim=-1)
+
+
+def fused_dot_route(data_bits: int, coeff_bits: int) -> str:
+    """The route ``fused_dot_layer`` takes on the card for operands in
+    their widths' containers: ``dp4a`` where ``_dot_dtype`` is int8
+    (every layer of the committed plans; the wrapper narrows both
+    operands to int8 and the C entry runs ``__dp4a`` on two int8
+    containers), else ``imad``, 32-bit multiply-adds on the CUDA
+    cores."""
+    return "dp4a" if conv2d._dot_dtype(data_bits, coeff_bits) == torch.int8 \
+        else "imad"
 
 
 def fused_dot_layer_plain(x, w, *, data_bits: int, coeff_bits: int):
@@ -238,8 +279,9 @@ def fused_dot_layer_plain(x, w, *, data_bits: int, coeff_bits: int):
 def fused_dot_layer(x, w, *, data_bits: int, coeff_bits: int):
     """One integer dot for the whole layer: x (N, H, W, ic) container
     int, w (oc, ic, 3, 3) → exact int32 (N, oc, H, W).  On the card an
-    implicit GEMM that never writes the im2col matrix
-    (``csrc/fused_dot_layer.cu``); the plain version on the CPU."""
+    implicit GEMM over a staged tile that never writes the im2col matrix
+    (``csrc/fused_dot_layer.cu``), on the route ``fused_dot_route``
+    names; the plain version on the CPU."""
     conv2d.check_layer_operands("fused_dot_layer", x, w)
     if x.device.type == "cpu":
         return fused_dot_layer_plain(x, w, data_bits=data_bits,
@@ -250,6 +292,40 @@ def fused_dot_layer(x, w, *, data_bits: int, coeff_bits: int):
 
 
 fused_dot_layer.launches = 0
+
+
+def fused_dot_layer_requant_plain(x, w, *, data_bits: int, coeff_bits: int,
+                                  shift: int, out_bits: int):
+    """Plain version of ``fused_dot_layer_requant``:
+    ``conv2d.requantize`` of ``fused_dot_layer_plain``."""
+    return conv2d.requantize(
+        fused_dot_layer_plain(x, w, data_bits=data_bits,
+                              coeff_bits=coeff_bits), shift, out_bits)
+
+
+def fused_dot_layer_requant(x, w, *, data_bits: int, coeff_bits: int,
+                            shift: int, out_bits: int):
+    """``fused_dot_layer`` and the layer's requantize in one launch:
+    x (N, H, W, ic), w (oc, ic, 3, 3) → (N, H, W, oc) in
+    ``container_dtype(out_bits)``, equal to ``conv2d.requantize(
+    fused_dot_layer(x, w, ...), shift, out_bits)``.  The kernel's
+    epilogue shifts, clamps and writes the channels-last container, so
+    the int32 accumulator never reaches device memory."""
+    name = "fused_dot_layer_requant"
+    conv2d.check_layer_operands(name, x, w)
+    conv2d.check_requant(name, shift, out_bits)
+    if x.device.type == "cpu":
+        return fused_dot_layer_requant_plain(
+            x, w, data_bits=data_bits, coeff_bits=coeff_bits, shift=shift,
+            out_bits=out_bits)
+    x, w = conv2d.narrow_to_dot_dtype(x, w, data_bits, coeff_bits)
+    return conv2d.launch_layer(fused_dot_layer_requant,
+                               _FUSED_REQUANT_ARGTYPES, x, w, w.shape[0],
+                               w.numel(), min(shift, 31), out_bits,
+                               out_bits=out_bits)
+
+
+fused_dot_layer_requant.launches = 0
 
 
 def _check_pack_shift(data_bits: int, coeff_bits: int) -> int:
@@ -309,3 +385,36 @@ def packed_dot_layer(x, w, *, data_bits: int, coeff_bits: int):
 
 
 packed_dot_layer.launches = 0
+
+
+def packed_dot_layer_requant_plain(x, w, *, data_bits: int, coeff_bits: int,
+                                   shift: int, out_bits: int):
+    """Plain version of ``packed_dot_layer_requant``:
+    ``conv2d.requantize`` of ``packed_dot_layer_plain``."""
+    return conv2d.requantize(
+        packed_dot_layer_plain(x, w, data_bits=data_bits,
+                               coeff_bits=coeff_bits), shift, out_bits)
+
+
+def packed_dot_layer_requant(x, w, *, data_bits: int, coeff_bits: int,
+                             shift: int, out_bits: int):
+    """``packed_dot_layer`` and the layer's requantize in one launch:
+    x (N, H, W, ic), w (oc, ic, 3, 3) → (N, H, W, oc) in
+    ``container_dtype(out_bits)``, equal to ``conv2d.requantize(
+    packed_dot_layer(x, w, ...), shift, out_bits)``; the epilogue writes
+    the channels-last container."""
+    name = "packed_dot_layer_requant"
+    conv2d.check_layer_operands(name, x, w)
+    conv2d.check_requant(name, shift, out_bits)
+    s = _check_pack_shift(data_bits, coeff_bits)
+    if x.device.type == "cpu":
+        return packed_dot_layer_requant_plain(
+            x, w, data_bits=data_bits, coeff_bits=coeff_bits, shift=shift,
+            out_bits=out_bits)
+    return conv2d.launch_layer(packed_dot_layer_requant,
+                               _PACKED_REQUANT_ARGTYPES, x, w, w.shape[0],
+                               (w.shape[0] + 1) // 2 * w.shape[1] * 9, s,
+                               min(shift, 31), out_bits, out_bits=out_bits)
+
+
+packed_dot_layer_requant.launches = 0

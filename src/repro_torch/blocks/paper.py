@@ -11,7 +11,8 @@ layer.  Conv1 also runs ``conv1_layer`` for a whole image and through
 the default ``batched_layer``.  The dot blocks override ``batched_layer``
 as the reference's do: Conv2/Conv4 with the fused implicit-GEMM dot,
 Conv3 with the operand-packed dot while packing is valid and the fused
-dot outside it.
+dot outside it; and ``batched_layer_requant`` with the same kernels'
+requantizing entries.
 """
 
 from __future__ import annotations
@@ -22,7 +23,9 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.blocks.base import (ConvBlock, fused_dot_layer,
-                                     packed_dot_layer)
+                                     fused_dot_layer_requant,
+                                     packed_dot_layer,
+                                     packed_dot_layer_requant)
 from repro_torch.blocks.registry import register_block
 from repro_torch.kernels import conv2d
 
@@ -68,6 +71,11 @@ class Conv2Block(ConvBlock):
         return fused_dot_layer(x, w, data_bits=data_bits,
                                coeff_bits=coeff_bits)
 
+    def batched_layer_requant(self, x, w, *, data_bits, coeff_bits, shift):
+        return fused_dot_layer_requant(x, w, data_bits=data_bits,
+                                       coeff_bits=coeff_bits, shift=shift,
+                                       out_bits=data_bits)
+
 
 @dataclass(frozen=True)
 class Conv3Block(ConvBlock):
@@ -96,6 +104,13 @@ class Conv3Block(ConvBlock):
         return fused_dot_layer(x, w, data_bits=data_bits,
                                coeff_bits=coeff_bits)
 
+    def batched_layer_requant(self, x, w, *, data_bits, coeff_bits, shift):
+        kw = dict(data_bits=data_bits, coeff_bits=coeff_bits, shift=shift,
+                  out_bits=data_bits)
+        if self.packed_ok(data_bits, coeff_bits):
+            return packed_dot_layer_requant(x, w, **kw)
+        return fused_dot_layer_requant(x, w, **kw)
+
 
 @dataclass(frozen=True)
 class Conv4Block(ConvBlock):
@@ -112,6 +127,11 @@ class Conv4Block(ConvBlock):
     def batched_layer(self, x, w, *, data_bits, coeff_bits, tile_h=16):
         return fused_dot_layer(x, w, data_bits=data_bits,
                                coeff_bits=coeff_bits)
+
+    def batched_layer_requant(self, x, w, *, data_bits, coeff_bits, shift):
+        return fused_dot_layer_requant(x, w, data_bits=data_bits,
+                                       coeff_bits=coeff_bits, shift=shift,
+                                       out_bits=data_bits)
 
 
 CONV1 = register_block(Conv1Block(

@@ -136,13 +136,10 @@ def init_cnn(generator: torch.Generator, cfg: CNNConfig
 def _requantize(acc: torch.Tensor, spec: ConvLayerSpec) -> torch.Tensor:
     """Rescale + ReLU + requantize one layer's int32 accumulator —
     (out_ch, H, W) or (N, out_ch, H, W) — back into the channels-last
-    activation range, contiguous for the next layer's kernel.  ``>>`` is
-    arithmetic on int32 in both frameworks; a shift past 31 fills with
-    the sign, as XLA's does."""
-    lo, hi = 0, (1 << (spec.data_bits - 1)) - 1
-    return torch.clamp(acc >> min(spec.shift, 31), lo, hi) \
-        .to(conv2d.container_dtype(spec.data_bits)).movedim(-3, -1) \
-        .contiguous()
+    activation range, contiguous for the next layer's kernel
+    (``conv2d.requantize`` at the layer's shift and data bits; the dot
+    layers' kernels run the same arithmetic in their epilogue)."""
+    return conv2d.requantize(acc, spec.shift, spec.data_bits)
 
 
 def cnn_forward(params, x, cfg: CNNConfig, blocks: Sequence[BlockLike]):

@@ -30,11 +30,15 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("conv1_layer", "fused_dot_layer", "packed_dot_layer",
            "conv2_planes", "conv3_planes", "conv4_planes", "causal_conv1d",
            "flash_attention")
+# C entries beyond ``repro_<library>``, by the library that holds them
+ENTRIES = {"fused_dot_layer_requant": "fused_dot_layer",
+           "packed_dot_layer_requant": "packed_dot_layer"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[str, Callable[..., int]] = {}
 
 
 def nvcc() -> str:
@@ -101,28 +105,38 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     return reports
 
 
-def kernel(name: str, argtypes: Sequence) -> Callable[..., int]:
-    """The C entry ``repro_<name>``, building and loading its library at
-    first use."""
+def library_of(entry: str) -> str:
+    """The kernel library that holds the C entry ``repro_<entry>``."""
+    return ENTRIES.get(entry, entry)
+
+
+def kernel(entry: str, argtypes: Sequence) -> Callable[..., int]:
+    """The C entry ``repro_<entry>``, building and loading its library
+    at first use."""
     with _lock:
-        lib = _libs.get(name)
-        if lib is None:
-            path = library_path(name)
-            if not path.exists():
-                build((name,))
-            lib = ctypes.CDLL(str(path))
-            lib.repro_error_string.argtypes = [ctypes.c_int]
-            lib.repro_error_string.restype = ctypes.c_char_p
-            fn = getattr(lib, f"repro_{name}")
+        fn = _entries.get(entry)
+        if fn is None:
+            name = library_of(entry)
+            lib = _libs.get(name)
+            if lib is None:
+                path = library_path(name)
+                if not path.exists():
+                    build((name,))
+                lib = ctypes.CDLL(str(path))
+                lib.repro_error_string.argtypes = [ctypes.c_int]
+                lib.repro_error_string.restype = ctypes.c_char_p
+                _libs[name] = lib
+            fn = getattr(lib, f"repro_{entry}")
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
-            _libs[name] = lib
-        return getattr(lib, f"repro_{name}")
+            _entries[entry] = fn
+        return fn
 
 
-def check(name: str, err: int) -> None:
-    """Raise if a launch returned a CUDA error code."""
+def check(entry: str, err: int) -> None:
+    """Raise if a launch of ``repro_<entry>`` returned a CUDA error
+    code."""
     if err:
-        msg = _libs[name].repro_error_string(err).decode()
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err} "
+        msg = _libs[library_of(entry)].repro_error_string(err).decode()
+        raise RuntimeError(f"{entry}: CUDA launch failed with error {err} "
                            f"({msg})")

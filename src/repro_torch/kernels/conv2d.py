@@ -73,6 +73,27 @@ def narrow_to_dot_dtype(x, w, data_bits: int, coeff_bits: int):
     return x, w
 
 
+def requantize(acc: torch.Tensor, shift: int, out_bits: int
+               ) -> torch.Tensor:
+    """A layer's rescale + ReLU + requantize: the int32 accumulator —
+    (out_ch, H, W) or (N, out_ch, H, W) — shifted right arithmetically
+    by ``min(shift, 31)`` (a shift past 31 fills with the sign, as XLA's
+    does), clamped to [0, 2^(out_bits−1) − 1], cast to
+    ``container_dtype(out_bits)`` and laid out channels-last,
+    contiguous."""
+    hi = (1 << (out_bits - 1)) - 1
+    return torch.clamp(acc >> min(shift, 31), 0, hi) \
+        .to(container_dtype(out_bits)).movedim(-3, -1).contiguous()
+
+
+def check_requant(name: str, shift: int, out_bits: int) -> None:
+    """What a requantizing entry takes: a shift ≥ 0 and an output width
+    whose container is int8 or int16."""
+    if shift < 0 or not 1 <= out_bits <= 16:
+        raise ValueError(f"{name}: need shift >= 0 and 1 <= out_bits <= 16, "
+                         f"got shift={shift}, out_bits={out_bits}")
+
+
 def wrap_int(t: torch.Tensor, bits: int = 32) -> torch.Tensor:
     """The ``bits``-bit two's-complement value of an int64 tensor, as
     int64: what an int16/int32 accumulator of the reference holds after
@@ -147,13 +168,15 @@ def _check_launch(name: str, x: torch.Tensor, w: torch.Tensor) -> None:
 
 
 def launch_layer(wrapper, argtypes, x: torch.Tensor, w: torch.Tensor,
-                 out_channels: int, weight_words: int, *extra: int
-                 ) -> torch.Tensor:
-    """Launch the kernel of ``wrapper`` (named as it is) on x's device
+                 out_channels: int, weight_words: int, *extra: int,
+                 out_bits: int | None = None) -> torch.Tensor:
+    """Launch the C entry of ``wrapper`` (named as it is) on x's device
     and current stream, add one to ``wrapper.launches``, and return the
-    (N, out_channels, H, W) int32 output.  Raises on what the kernel
-    does not take and on any launch error; never falls back.  An empty
-    batch has nothing to compute and launches nothing."""
+    int32 accumulator (N, out_channels, H, W) — or, for a requantizing
+    entry (``out_bits`` given), the channels-last activations (N, H, W,
+    out_channels) in ``container_dtype(out_bits)``.  Raises on what the
+    kernel does not take and on any launch error; never falls back.  An
+    empty output has nothing to compute and launches nothing."""
     name = wrapper.__name__
     _check_launch(name, x, w)
     if 4 * weight_words > SMEM_WEIGHT_BYTES:
@@ -161,9 +184,13 @@ def launch_layer(wrapper, argtypes, x: torch.Tensor, w: torch.Tensor,
             f"{name}: {weight_words} staged weight words exceed the "
             f"kernel's {SMEM_WEIGHT_BYTES}-byte shared-memory budget")
     n, h, wd, ic = x.shape
-    out = torch.empty((n, out_channels, h, wd), dtype=torch.int32,
-                      device=x.device)
-    if n == 0:
+    if out_bits is None:
+        out = torch.empty((n, out_channels, h, wd), dtype=torch.int32,
+                          device=x.device)
+    else:
+        out = torch.empty((n, h, wd, out_channels),
+                          dtype=container_dtype(out_bits), device=x.device)
+    if out.numel() == 0:
         return out
     fn = build.kernel(name, argtypes)
     err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),

@@ -20,26 +20,25 @@
 // shift-adds with a branch per bit for every (pixel, oc, ic, tap), and every
 // tap re-read from global memory behind four bounds checks once per (oc
 // tile, ic, tap).  Design: w' is computed once per block into shared memory
-// (ic, tap, oc).  A block takes a 16 x 32 tile of one image and stages it
-// with its one-pixel halo, 8 input channels at a time, in shared memory as
-// 32-bit words, zero padding written at staging (8-byte vector loads where
-// the channels allow), so the inner loop has no bounds checks.  Each thread
-// owns 4 vertically adjacent pixels of one column: per input channel it
-// reads the 6 x 3 window of taps once into registers and applies each tap
-// to 8 output channels held in registers.  A warp is 32 neighbouring
-// columns, so tap reads hit 32 banks and output writes are coalesced along W.
-#include <cstring>
-
+// (ic, tap, oc), while the first input chunk's loads are in flight.  A block
+// takes a 16 x 32 tile of one image and stages it with its one-pixel halo,
+// 8 input channels at a time, in shared memory as 32-bit words, zero padding
+// written at staging (8-byte vector loads where the channels allow), so the
+// inner loop has no bounds checks; the tile and its staging (common.cuh) are
+// shared with fused_dot_layer and packed_dot_layer.  Each of the block's 256
+// threads owns 2 vertically adjacent pixels of one column: per input
+// channel it reads the 4 x 3 window of taps once into registers and applies
+// each tap to 8 output channels held in registers.  A warp is 32
+// neighbouring columns, so tap reads hit 32 banks and output writes are
+// coalesced along W.
 #include "common.cuh"
 
 namespace {
 
-constexpr int TILE_W = 32;                         // one warp across
-constexpr int PPT = 4;                             // pixels (rows) per thread
-constexpr int TILE_H = repro::THREADS / TILE_W * PPT;  // 16
-constexpr int HALO_H = TILE_H + 2, HALO_W = TILE_W + 2;
-constexpr int PLANE = HALO_H * HALO_W;             // words per staged channel
-constexpr int ICC = 8;                             // channels staged at once
+using repro::HALO_W;
+using repro::ICC;
+using repro::PLANE;
+using repro::PPT;
 constexpr int OCT = repro::OC_TILE;                // output channels in regs
 
 inline size_t smem_words(int ic, int oc) {
@@ -47,46 +46,8 @@ inline size_t smem_words(int ic, int oc) {
          static_cast<size_t>(ICC) * PLANE;
 }
 
-// Channels [c0, c0 + cc) of the halo tile at (tr0 - 1, tc0 - 1) of image
-// img into xs (cc, HALO_H, HALO_W), zeros outside the image.
-template <typename TX>
-__device__ __forceinline__ void stage(uint32_t* xs, const TX* __restrict__ x,
-                                     int64_t img, int tr0, int tc0, int h,
-                                     int wd, int ic, int c0, int cc) {
-  constexpr int U = 8 / sizeof(TX);   // channels per 8-byte load
-  const bool vec = ic % U == 0 && c0 % U == 0 && cc % U == 0 &&
-                   (reinterpret_cast<uintptr_t>(x) & 7) == 0;
-  if (vec) {
-    const int units = cc / U;
-    for (int i = threadIdx.x; i < PLANE * units; i += repro::THREADS) {
-      const int pos = i / units, u = i % units;
-      const int r = tr0 + pos / HALO_W - 1, q = tc0 + pos % HALO_W - 1;
-      uint2 raw = make_uint2(0u, 0u);
-      if (r >= 0 && r < h && q >= 0 && q < wd)
-        raw = *reinterpret_cast<const uint2*>(
-            x + ((img * h + r) * wd + q) * ic + c0 + u * U);
-      TX vals[U];
-      memcpy(vals, &raw, sizeof(raw));
-#pragma unroll
-      for (int e = 0; e < U; ++e)
-        xs[(u * U + e) * PLANE + pos] =
-            static_cast<uint32_t>(static_cast<int32_t>(vals[e]));
-    }
-  } else {
-    for (int i = threadIdx.x; i < PLANE * cc; i += repro::THREADS) {
-      const int pos = i / cc, cl = i % cc;
-      const int r = tr0 + pos / HALO_W - 1, q = tc0 + pos % HALO_W - 1;
-      uint32_t val = 0u;
-      if (r >= 0 && r < h && q >= 0 && q < wd)
-        val = static_cast<uint32_t>(static_cast<int32_t>(
-            x[((img * h + r) * wd + q) * ic + c0 + cl]));
-      xs[cl * PLANE + pos] = val;
-    }
-  }
-}
-
 template <typename TX, typename TW>
-__global__ void __launch_bounds__(repro::THREADS)
+__global__ void __launch_bounds__(repro::TILE_THREADS)
 conv1_layer_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
                    int32_t* __restrict__ out, int h, int wd, int ic, int oc,
                    int coeff_bits, int acc16) {
@@ -94,22 +55,19 @@ conv1_layer_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
   uint32_t* wsm = c1_smem;                          // (ic, 9, oc): w'
   uint32_t* xs = c1_smem + ((oc * ic * 9 + 3) & ~3);  // (ICC, HALO_H, HALO_W)
 
-  const int tiles_w = (wd + TILE_W - 1) / TILE_W;
-  const int tiles_h = (h + TILE_H - 1) / TILE_H;
-  const int64_t img = blockIdx.x / (tiles_w * tiles_h);
-  const int tile = blockIdx.x % (tiles_w * tiles_h);
-  const int tr0 = tile / tiles_w * TILE_H, tc0 = tile % tiles_w * TILE_W;
-  const int col = threadIdx.x % TILE_W;
-  const int r0 = threadIdx.x / TILE_W * PPT;        // first row in the tile
+  const repro::TilePos tp = repro::tile_pos(wd);
 
-  // w' = sign(w) * (|w| & mask) modulo 2^32, from w (oc, ic, 3, 3)
+  // w' = sign(w) * (|w| & mask) modulo 2^32, from w (oc, ic, 3, 3),
+  // staged while the first chunk's loads are in flight
   const uint32_t mask = (1u << coeff_bits) - 1u;
   const int per_oc = ic * 9;
-  for (int i = threadIdx.x; i < oc * per_oc; i += repro::THREADS) {
-    const int32_t v = static_cast<int32_t>(w[i]);
-    const uint32_t mag = static_cast<uint32_t>(v < 0 ? -v : v) & mask;
-    wsm[(i % per_oc) * oc + i / per_oc] = v < 0 ? 0u - mag : mag;
-  }
+  auto stage_weights = [&] {
+    repro::stage_words(wsm, oc * per_oc, [&](int i) {
+      const int32_t v = static_cast<int32_t>(w[i % oc * per_oc + i / oc]);
+      const uint32_t mag = static_cast<uint32_t>(v < 0 ? -v : v) & mask;
+      return v < 0 ? 0u - mag : mag;
+    });
+  };
   // an int16 plane keeps its low 16 bits, sign-extended
   const int sh = acc16 ? 16 : 0;
 
@@ -123,12 +81,14 @@ conv1_layer_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
       const int cc = min(ICC, ic - c0);
       if (o0 == 0 || ic > ICC) {        // one chunk stays staged across oc
         __syncthreads();
-        stage(xs, x, img, tr0, tc0, h, wd, ic, c0, cc);
+        repro::stage(xs, x, tp.img, tp.tr0, tp.tc0, h, wd, ic, c0, cc, [&] {
+          if (o0 == 0 && c0 == 0) stage_weights();
+        });
         __syncthreads();
       }
       for (int cl = 0; cl < cc; ++cl) {
         uint32_t win[PPT + 2][3];
-        const uint32_t* xc = xs + cl * PLANE + r0 * HALO_W + col;
+        const uint32_t* xc = xs + cl * PLANE + tp.r0 * HALO_W + tp.col;
 #pragma unroll
         for (int r = 0; r < PPT + 2; ++r)
 #pragma unroll
@@ -160,19 +120,7 @@ conv1_layer_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
                 static_cast<int32_t>(plane[p][j] << sh) >> sh);
       }
     }
-    const int q = tc0 + col;
-#pragma unroll
-    for (int p = 0; p < PPT; ++p) {
-      const int r = tr0 + r0 + p;
-      if (r >= h || q >= wd) continue;
-      int32_t* o = out + (img * oc + o0) * h * wd +
-                   static_cast<int64_t>(r) * wd + q;
-#pragma unroll
-      for (int j = 0; j < OCT; ++j)
-        if (o0 + j < oc)
-          o[static_cast<int64_t>(j) * h * wd] =
-              static_cast<int32_t>(total[p][j]);
-    }
+    repro::write_pixels<int32_t, OCT>(out, total, tp, h, wd, oc, o0, 0, 0);
   }
 }
 
@@ -180,17 +128,11 @@ template <typename TX, typename TW>
 void launch(const void* x, const void* w, void* out, int n, int h, int wd,
             int ic, int oc, int coeff_bits, int acc16, cudaStream_t stream) {
   const size_t bytes = sizeof(uint32_t) * smem_words(ic, oc);
-  // above 48 KB only after opting in; a refusal is the launch's error
-  if (bytes > 48 * 1024 &&
-      cudaFuncSetAttribute(conv1_layer_kernel<TX, TW>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(bytes)) != cudaSuccess)
+  // a refusal is the launch's error
+  if (repro::allow_smem(conv1_layer_kernel<TX, TW>, bytes) != cudaSuccess)
     return;
-  const int64_t blocks = static_cast<int64_t>(n) *
-                         ((h + TILE_H - 1) / TILE_H) *
-                         ((wd + TILE_W - 1) / TILE_W);
   conv1_layer_kernel<TX, TW>
-      <<<static_cast<unsigned>(blocks), repro::THREADS, bytes, stream>>>(
+      <<<repro::tile_grid(n, h, wd), repro::TILE_THREADS, bytes, stream>>>(
           static_cast<const TX*>(x), static_cast<const TW*>(w),
           static_cast<int32_t*>(out), h, wd, ic, oc, coeff_bits, acc16);
 }

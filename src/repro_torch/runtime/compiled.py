@@ -30,8 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.blocks import BlockLike, ConvBlock, get_block
-from repro_torch.core.cnn import (CNNConfig, ConvLayerSpec, _requantize,
-                                  init_cnn)
+from repro_torch.core.cnn import CNNConfig, ConvLayerSpec, init_cnn
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import build, conv2d
 
@@ -342,11 +341,15 @@ class CompiledModel:
 
 
 class LayerLaunch:
-    """One prepared (layer, bucket) launch: the block's layer kernel at
-    a fixed input shape and container, then ``_requantize``.  Preparing
-    one for the card builds the CUDA kernels (once per process and
-    source hash).  Called as ``launch(w, x)`` with the layer's
-    device-resident weights, like the reference's executables."""
+    """One prepared (layer, bucket) launch: the block's layer and its
+    requantize (``ConvBlock.apply_batched_requant``) at a fixed input
+    shape and container — one kernel launch for the dot blocks, whose
+    epilogue requantizes (``fused_dot_layer_requant``,
+    ``packed_dot_layer_requant``); Conv1's layer kernel, then
+    ``conv2d.requantize``.  Preparing one for the card builds the CUDA kernels
+    (once per process and source hash).  Called as ``launch(w, x)`` with
+    the layer's device-resident weights, like the reference's
+    executables."""
 
     def __init__(self, block: ConvBlock, spec: ConvLayerSpec,
                  in_shape: Tuple[int, ...], in_dtype: torch.dtype,
@@ -363,9 +366,9 @@ class LayerLaunch:
                 f"layer launch prepared for {self.in_shape} "
                 f"{dtype_name(self.in_dtype)} on {self.device}, got "
                 f"{tuple(x.shape)} {dtype_name(x.dtype)} on {x.device}")
-        acc = self.block.apply_batched(x, w, data_bits=self.spec.data_bits,
-                                       coeff_bits=self.spec.coeff_bits)
-        return _requantize(acc, self.spec)
+        return self.block.apply_batched_requant(
+            x, w, data_bits=self.spec.data_bits,
+            coeff_bits=self.spec.coeff_bits, shift=self.spec.shift)
 
 
 class CompiledCNN(CompiledModel):

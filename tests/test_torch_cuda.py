@@ -1,8 +1,10 @@
 """Card tests of the port: each CUDA kernel against its plain PyTorch
 version on the card (tolerance 0 for the integer kernels and the conv1d,
-stated tolerances for attention), the launch contract, and the slices
-on the card against the JAX reference's golden outputs: the serving
-path (K1–K3), the per-plane path (``ConvBlock.apply``,
+stated tolerances for attention) — K1 and K2 in their int32 and their
+requantizing entries, K1 on both its routes (dp4a for int8 dots, the
+CUDA cores' multiply-add for int32 ones) — the launch contract, and
+the slices on the card against the JAX reference's golden outputs: the
+serving path (K1–K3), the per-plane path (``ConvBlock.apply``,
 ``cnn_forward_loop``, ``validate_plan``: K3–K6) and the LM path (K7,
 K8: ``prefill``, ``decode_step`` and the ``Engine``).
 Every test here carries the ``cuda`` marker and skips without a card;
@@ -65,6 +67,146 @@ def test_kernel_matches_plain_on_card(cuda, name, d, c):
     assert np.array_equal(y.cpu().numpy(), plain(
         torch.from_numpy(x), torch.from_numpy(w), data_bits=d,
         coeff_bits=c).numpy())
+
+
+# the requantizing entries of K1 and K2, with their plain versions
+REQUANT = {"fused_dot_layer": (base.fused_dot_layer_requant,
+                               base.fused_dot_layer_requant_plain),
+           "packed_dot_layer": (base.packed_dot_layer_requant,
+                                base.packed_dot_layer_requant_plain)}
+REQUANT_CASES = [(k, d, c) for k, d, c in CASES if k in REQUANT]
+SHIFTS = (0, 7, 31, 40)
+
+
+def check_requant(name, xc, wc, d, c):
+    """Each shift of ``SHIFTS``: one launch, the container of d, equal to
+    the plain version on the card."""
+    kernel, plain = REQUANT[name]
+    n, h, wd, _ = xc.shape
+    for shift in SHIFTS:
+        before = kernel.launches
+        y = kernel(xc, wc, data_bits=d, coeff_bits=c, shift=shift,
+                   out_bits=d)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        assert y.dtype == conv2d.container_dtype(d)
+        assert tuple(y.shape) == (n, h, wd, wc.shape[0])
+        assert torch.equal(y, plain(xc, wc, data_bits=d, coeff_bits=c,
+                                    shift=shift, out_bits=d)), shift
+
+
+@pytest.mark.parametrize("name,d,c", REQUANT_CASES)
+def test_requant_entry_matches_plain_on_card(cuda, name, d, c):
+    rng = np.random.default_rng(700 * d + c)
+    x, w = operands(rng, (3, 16, 40, 40), 7, d, c)
+    check_requant(name, torch.from_numpy(x).to(cuda),
+                  torch.from_numpy(w).to(cuda), d, c)
+
+
+@pytest.mark.parametrize("name", sorted(REQUANT))
+def test_requant_entry_container_range_int16_inputs_on_card(cuda, name):
+    rng = np.random.default_rng(13)
+    x, w = operands(rng, (2, 16, 24, 5), 3, 3, 8, x_range=(-32768, 32767))
+    check_requant(name, torch.from_numpy(x).to(cuda),
+                  torch.from_numpy(w).to(cuda), 3, 8)
+
+
+# chip_smoke.py's MAIN_CASES: the serving layers at bucket 16
+MAIN_CASES = [("fused_dot_layer", (16, 32, 128, 1), 8, 8, 6),
+              ("fused_dot_layer", (16, 32, 128, 8), 8, 8, 6),
+              ("fused_dot_layer", (16, 32, 128, 8), 4, 6, 4),
+              ("conv1_layer", (16, 32, 128, 8), 8, 8, 6),
+              ("packed_dot_layer", (16, 32, 128, 8), 4, 6, 4)]
+
+
+@pytest.mark.parametrize("name,shape,oc,d,c", MAIN_CASES)
+def test_main_path_shapes_on_card(cuda, name, shape, oc, d, c):
+    """The int32 entry and the layer with its requantize as serving runs
+    it (K1, K2: the requantizing entry; K3: ``conv1_layer``, then
+    ``requantize``), each equal to its plain version."""
+    rng = np.random.default_rng(sum(shape) + oc)
+    x, w = operands(rng, shape, oc, d, c)
+    xc, wc = torch.from_numpy(x).to(cuda), torch.from_numpy(w).to(cuda)
+    kernel, plain = KERNELS[name]
+    assert torch.equal(kernel(xc, wc, data_bits=d, coeff_bits=c),
+                       plain(xc, wc, data_bits=d, coeff_bits=c))
+    if name in REQUANT:
+        check_requant(name, xc, wc, d, c)
+    else:
+        y = get_block("conv1").apply_batched_requant(
+            xc, wc, data_bits=d, coeff_bits=c, shift=7)
+        assert torch.equal(y, conv2d.requantize(
+            plain(xc, wc, data_bits=d, coeff_bits=c), 7, d))
+
+
+@pytest.mark.parametrize("d,c", POINTS)
+@pytest.mark.parametrize("shape,oc", [((3, 16, 40, 40), 7),
+                                      ((2, 16, 40, 1), 8),
+                                      ((2, 16, 23, 3), 5)],
+                         ids=["channels", "ic1", "rows"])
+def test_fused_dot_routes_match_plain_on_card(cuda, shape, oc, d, c):
+    """K1 on the route its containers pick: dp4a on int8 dots, over
+    words of 4 channels (ic % 4 == 0) or of a window row's 3 taps
+    (ic = 1, 3), and the CUDA cores' multiply-add on int32 dots."""
+    rng = np.random.default_rng(900 * d + c + shape[-1])
+    x, w = operands(rng, shape, oc, d, c)
+    xc, wc = torch.from_numpy(x).to(cuda), torch.from_numpy(w).to(cuda)
+    y = base.fused_dot_layer(xc, wc, data_bits=d, coeff_bits=c)
+    assert torch.equal(y, base.fused_dot_layer_plain(xc, wc, data_bits=d,
+                                                     coeff_bits=c))
+    check_requant("fused_dot_layer", xc, wc, d, c)
+
+
+def unaligned(x):
+    """A contiguous copy of x whose data starts one element past an
+    8-byte boundary, so no row of it is aligned for the vector loads."""
+    flat = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)
+    view = flat[1:1 + x.numel()].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 8
+    return view
+
+
+@pytest.mark.parametrize("d,c", [(8, 6), (6, 4), (9, 8), (3, 8)])
+@pytest.mark.parametrize("name", sorted(KERNELS))
+def test_layer_kernels_unaligned_rows_on_card(cuda, name, d, c):
+    """(2, 16, 23, 3) → 5: 3-channel rows, which no vector load takes;
+    then 8 channels starting off an 8-byte boundary."""
+    kernel, plain = KERNELS[name]
+    rng = np.random.default_rng(31 * d + c)
+    for shape in ((2, 16, 23, 3), (2, 16, 23, 8)):
+        x, w = operands(rng, shape, 5, d, c)
+        xc, wc = torch.from_numpy(x).to(cuda), torch.from_numpy(w).to(cuda)
+        if shape[-1] == 8:
+            xc = unaligned(xc)
+        assert torch.equal(kernel(xc, wc, data_bits=d, coeff_bits=c),
+                           plain(xc, wc, data_bits=d, coeff_bits=c))
+        if name in REQUANT:
+            check_requant(name, xc, wc, d, c)
+
+
+@pytest.mark.parametrize("name", sorted(REQUANT))
+def test_requant_entry_refuses_what_it_does_not_take(cuda, name):
+    kernel, _ = REQUANT[name]
+    kw = dict(data_bits=6, coeff_bits=4, shift=7, out_bits=6)
+    x = torch.zeros((1, 16, 8, 2), dtype=torch.int8, device=cuda)
+    w = torch.zeros((3, 2, 3, 3), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel(x.transpose(1, 2).contiguous().transpose(1, 2), w, **kw)
+    with pytest.raises(ValueError, match="on cuda"):
+        kernel(x, w.cpu(), **kw)
+    with pytest.raises(ValueError, match="out_bits"):
+        kernel(x, w, **dict(kw, out_bits=17))
+    with pytest.raises(ValueError, match="shift"):
+        kernel(x, w, **dict(kw, shift=-1))
+    big = torch.zeros((64, 64, 3, 3), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="shared-memory"):
+        kernel(torch.zeros((1, 16, 8, 64), dtype=torch.int8, device=cuda),
+               big, **kw)
+    before = kernel.launches
+    empty = kernel(x[:0], w, **kw)
+    assert tuple(empty.shape) == (0, 16, 8, 3) and empty.dtype == torch.int8
+    assert kernel.launches == before
 
 
 # Conv1 at the shapes its paths launch: the serving layer at bucket 1
@@ -134,15 +276,21 @@ def golden_engine(device, max_batch):
 
 
 def test_slice_on_card_matches_golden_through_all_kernels(cuda):
+    """One forward of the pinned plan: K3 once, K1 and K2 once each
+    through their requantizing entries and never through the int32
+    ones."""
     engine, gx, gy = golden_engine(cuda, 8)
-    counters = [fn for fn, _ in KERNELS.values()]
+    counters = [conv2d.conv1_layer, base.fused_dot_layer_requant,
+                base.packed_dot_layer_requant, base.fused_dot_layer,
+                base.packed_dot_layer]
     before = [fn.launches for fn in counters]
     reqs = [ImageRequest(image=x, request_id=i)
             for i, x in enumerate(engine.compiled.sample_inputs(8))]
     engine.run(reqs)
     assert np.array_equal(np.stack([r.image for r in reqs]), gx)
     assert np.array_equal(np.stack([r.output for r in reqs]), gy)
-    assert [fn.launches - b for fn, b in zip(counters, before)] == [1, 1, 1]
+    assert [fn.launches - b for fn, b in zip(counters, before)] \
+        == [1, 1, 1, 0, 0]
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 4, 8, 16, 17])

@@ -1,4 +1,4 @@
-"""The arithmetic of the port's two redesigned kernels, held on the CPU.
+"""The arithmetic of the port's redesigned kernels, held on the CPU.
 
 A CUDA kernel cannot run here, but the arithmetic it does can: each test
 below computes, in plain PyTorch, exactly what the kernel computes and in
@@ -23,6 +23,23 @@ plain version (which the card tests hold the kernel against).
   width (1, 300, 24, 8 kv heads, 128), causal: P rounded to 8 bits moves
   the output by more than one bf16 unit.  That is why the kernel keeps
   the split.
+* K1 ``fused_dot_layer`` (``csrc/fused_dot_layer.cu``) on its dp4a route
+  (int8 dots): where ic % 4 == 0, words of 4 channels as they lie in
+  memory against weights packed alike, 9 · ic / 4 dp4a per output;
+  otherwise, as at ic = 1, each window row's 3 staged taps packed into
+  a word by two byte permutes, whose 4th byte (a copy of the first tap)
+  meets a zero weight byte, 3 · ic dp4a per output.  Both models equal
+  ``fused_dot_layer_plain`` bit for bit.
+* K2 ``packed_dot_layer`` (``csrc/packed_dot_layer.cu``): staged words of
+  4 int8 or 2 int16 channels, lanes past ic zero, each channel extracted
+  by a sign-extending byte permute; the packed dot per channel, the
+  field split per channel, the sums over channels in the staged order.
+  The model equals ``packed_dot_layer_plain`` bit for bit.
+* The requantizing epilogue of K1 and K2: the int32 sum shifted by
+  min(shift, 31), clamped to [0, 2^(out_bits−1) − 1], each pixel's
+  channels packed into one 4-, 8- or 16-byte word where they fill the
+  register tile, else stored one by one.  The model's bytes equal
+  ``conv2d.requantize``.
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernel_numerics.py
 """
@@ -32,6 +49,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from repro_torch.blocks import base
 from repro_torch.kernels import conv2d, flash_attention as fa
 from torch_parity import operands
 
@@ -239,3 +257,297 @@ def test_flash_single_bf16_p_misses_bf16_tolerance():
     split = flash_tensor_core_model(q, k, v, causal=causal)
     assert (split.float() - want).abs().max() \
         < (single.float() - want).abs().max()
+
+
+# ---------------------------------------------------------------------------
+# K1 and K2: the dot kernels over the staged tile, and their epilogue
+# ---------------------------------------------------------------------------
+
+def _word(t: torch.Tensor) -> torch.Tensor:
+    """A sign-extended value as the 32-bit word the kernels hold, kept
+    as an int64 in [0, 2^32)."""
+    return t.to(torch.int64) & U32
+
+
+def _signed(words: torch.Tensor) -> torch.Tensor:
+    return torch.where(words >= 1 << 31, words - (1 << 32), words)
+
+
+def _lanes(words: torch.Tensor) -> torch.Tensor:
+    """The 4 signed bytes of 32-bit words, low byte first: (..., 4)."""
+    b = torch.stack([(words >> (8 * i)) & 0xFF for i in range(4)], dim=-1)
+    return torch.where(b >= 128, b - 256, b)
+
+
+def dp4a_model(a, b, c):
+    """``__dp4a``: c plus the 4 products of signed bytes, modulo 2^32."""
+    return (c + (_lanes(a) * _lanes(b)).sum(dim=-1)) & U32
+
+
+def prmt_model(x, y, sel: int, sign: bool = False):
+    """PTX ``prmt.b32`` in its default mode on words x, y: result byte n
+    is byte (sel_n & 7) of y:x, or with ``sign`` and sel_n & 8 that
+    byte's top bit replicated (``__byte_perm`` is the mode without)."""
+    xy = (y << 32) | x
+    out = torch.zeros_like(x)
+    for n in range(4):
+        s = (sel >> (4 * n)) & 0xF
+        byte = (xy >> (8 * (s & 7))) & 0xFF
+        if sign and s & 8:
+            byte = torch.where(byte >= 128, 0xFF, 0)
+        out = out | (byte << (8 * n))
+    return out
+
+
+def pack4(b0, b1, b2, b3):
+    """Four signed bytes as one word, the first in the low byte."""
+    return ((b0 & 0xFF) | (b1 & 0xFF) << 8 | (b2 & 0xFF) << 16
+            | (b3 & 0xFF) << 24)
+
+
+def _taps(xpad, h, wd, t):
+    return xpad[:, t // 3:t // 3 + h, t % 3:t % 3 + wd]
+
+
+def k1_dp4a_model(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``fused_dot_layer`` on its dp4a route as the kernel computes it,
+    on int8 x (N, H, W, ic) and w (oc, ic, 3, 3)."""
+    n, h, wd, ic = x.shape
+    oc = w.shape[0]
+    wk = w.to(torch.int64)
+    acc = torch.zeros((n, h, wd, oc), dtype=torch.int64)
+    if ic % 4 == 0:
+        # staged: the words of memory, 4 channels each; weights packed so
+        xw = _word(x.contiguous().view(torch.int32))      # (N, H, W, ic/4)
+        xpad = F.pad(xw.permute(0, 3, 1, 2), (1, 1, 1, 1)) \
+            .permute(0, 2, 3, 1)
+        ww = pack4(*(wk[:, e::4] for e in range(4)))      # (oc, ic/4, 3, 3)
+        for t in range(9):
+            tap = xpad[:, t // 3:t // 3 + h, t % 3:t % 3 + wd]
+            wt = ww[:, :, t // 3, t % 3]                  # (oc, ic/4)
+            for k in range(ic // 4):
+                acc = dp4a_model(tap[..., k, None], wt[:, k], acc)
+        return _signed(acc).to(torch.int32).permute(0, 3, 1, 2)
+    # staged: one sign-extended word per channel; each window row's 3
+    # taps packed by __byte_perm(__byte_perm(a, b, 0x0040), c, 0x3410)
+    xpad = F.pad(_word(x).permute(0, 3, 1, 2), (1, 1, 1, 1))
+    for c in range(ic):
+        for di in range(3):
+            row = xpad[:, c, di:di + h]
+            packed = prmt_model(prmt_model(row[..., :wd], row[..., 1:wd + 1],
+                                           0x0040),
+                                row[..., 2:wd + 2], 0x3410)
+            wrow = pack4(wk[:, c, di, 0], wk[:, c, di, 1], wk[:, c, di, 2],
+                         torch.zeros_like(wk[:, c, di, 0]))
+            acc = dp4a_model(packed[..., None], wrow, acc)
+    return _signed(acc).to(torch.int32).permute(0, 3, 1, 2)
+
+
+INT8_POINTS = [(3, 3), (3, 8), (6, 4), (6, 5), (6, 6), (8, 6), (8, 8)]
+
+
+@pytest.mark.parametrize("d,c", INT8_POINTS)
+@pytest.mark.parametrize("ic", [1, 3, 8])
+@pytest.mark.parametrize("x_int16", [False, True],
+                         ids=["x_own_container", "x_int16"])
+def test_k1_dp4a_model_equals_plain(d, c, ic, x_int16):
+    """Both word forms (ic = 8: channels; ic = 1, 3: rows) over the int8
+    points, also on int16 container-range inputs, which the wrapper
+    narrows to int8 as the reference's int8 dot does."""
+    rng = np.random.default_rng(40 * d + c + ic)
+    x, w = operands(rng, (2, 5, 7, ic), 5, d, c,
+                    x_range=(-32768, 32767) if x_int16 else None)
+    x, w = torch.from_numpy(x), torch.from_numpy(w)
+    assert base.fused_dot_route(d, c) == "dp4a"
+    xn, wn = conv2d.narrow_to_dot_dtype(x, w, d, c)
+    assert torch.equal(k1_dp4a_model(xn, wn), base.fused_dot_layer_plain(
+        x, w, data_bits=d, coeff_bits=c))
+
+
+def test_k1_row_words_carry_a_stray_byte_against_a_zero_weight():
+    """The packed row word's 4th byte is a copy of its first tap, not 0:
+    the kernel relies on the zero 4th weight byte, and a nonzero one
+    there would change the sum."""
+    x = torch.tensor([[[[5], [-3], [7]]]], dtype=torch.int8)     # (1,1,3,1)
+    row = _word(x[0, 0, :, 0])
+    packed = prmt_model(prmt_model(row[:1], row[1:2], 0x0040), row[2:3],
+                        0x3410)
+    assert _lanes(packed).tolist() == [[5, -3, 7, 5]]
+    w = torch.ones((1, 1, 3, 3), dtype=torch.int8)
+    want = base.fused_dot_layer_plain(x, w, data_bits=8, coeff_bits=8)
+    assert torch.equal(k1_dp4a_model(x, w), want)
+    stray = dp4a_model(packed, pack4(*(torch.tensor([1])
+                                       for _ in range(4))), 0)
+    assert int(stray) == 5 - 3 + 7 + 5
+
+
+def _lane_selector(size: int, e: int) -> int:
+    """The selector of ``repro::lane<TX>(word, e)`` (common.cuh)."""
+    lo = size * e
+    top = lo + size - 1
+    sign = 8 | top
+    if size == 1:
+        return lo | sign << 4 | sign << 8 | sign << 12
+    return lo | top << 4 | sign << 8 | sign << 12
+
+
+def k2_model(x: torch.Tensor, w: torch.Tensor, *, data_bits: int,
+             coeff_bits: int) -> torch.Tensor:
+    """``packed_dot_layer`` as the kernel computes it: x staged as words
+    of E = 4 / itemsize channels (lanes past ic zero), each channel
+    extracted by a sign-extending permute, one packed int32 dot per
+    (pair, channel) modulo 2^32, the signed field split per channel,
+    the sums over channels modulo 2^32."""
+    n, h, wd, ic = x.shape
+    oc = w.shape[0]
+    size = x.element_size()
+    e_per = 4 // size
+    s = conv2d._pack_shift(data_bits, coeff_bits)
+    xp = F.pad(x, (0, -ic % e_per)).contiguous()          # zero lanes
+    words = _word(xp.view(torch.int32))                   # (N, H, W, K)
+    wpad = F.pad(words.permute(0, 3, 1, 2), (1, 1, 1, 1))  # (N, K, H+2, W+2)
+    wk = w.to(torch.int64)
+    pairs = (oc + 1) // 2
+    hi_ch = [2 * p for p in range(pairs)]
+    lo_ch = [min(2 * p + 1, oc - 1) for p in range(pairs)]
+    packed = ((_word(wk[hi_ch]) << s) + _word(wk[lo_ch])) & U32
+    half, field = 1 << (s - 1), (1 << s) - 1
+    sum_hi = torch.zeros((n, pairs, h, wd), dtype=torch.int64)
+    sum_lo = torch.zeros_like(sum_hi)
+    for c in range(ic):
+        plane = prmt_model(wpad[:, c // e_per], torch.zeros_like(
+            wpad[:, 0]), _lane_selector(size, c % e_per), sign=True)
+        acc = torch.zeros_like(sum_hi)
+        for t in range(9):
+            acc = (acc + plane[:, None, t // 3:t // 3 + h,
+                               t % 3:t % 3 + wd]
+                   * packed[None, :, c, t // 3, t % 3, None, None]) & U32
+        lo = ((acc + half) & field) - half
+        hi = _signed((acc - lo) & U32) >> s
+        sum_hi = (sum_hi + hi) & U32
+        sum_lo = (sum_lo + lo) & U32
+    out = torch.stack([sum_hi, sum_lo], dim=2).reshape(n, 2 * pairs, h, wd)
+    return _signed(out[:, :oc]).to(torch.int32)
+
+
+K2_POINTS = [(d, c) for d, c in [(3, 3), (3, 8), (6, 4), (6, 5), (6, 6),
+                                 (8, 6), (8, 8), (9, 8), (8, 9), (12, 16),
+                                 (16, 12)]]
+
+
+@pytest.mark.parametrize("d,c", K2_POINTS)
+@pytest.mark.parametrize("ic,oc", [(5, 5), (8, 4)])
+@pytest.mark.parametrize("x_int16", [False, True],
+                         ids=["x_own_container", "x_int16"])
+def test_k2_word_model_equals_plain(d, c, ic, oc, x_int16):
+    """Every pack-legal point of the card tests' grid, a partial last
+    word (ic = 5) and the serving layer's 8 → 4, in both containers and
+    on int16 container-range inputs."""
+    rng = np.random.default_rng(60 * d + c + ic)
+    x, w = operands(rng, (2, 5, 7, ic), oc, d, c,
+                    x_range=(-32768, 32767) if x_int16 else None)
+    x, w = torch.from_numpy(x), torch.from_numpy(w)
+    assert torch.equal(k2_model(x, w, data_bits=d, coeff_bits=c),
+                       base.packed_dot_layer_plain(x, w, data_bits=d,
+                                                   coeff_bits=c))
+
+
+def requant_epilogue_model(acc: torch.Tensor, shift: int, out_bits: int):
+    """The epilogue of the requantizing entries on acc (N, oc, H, W)
+    int32: each value shifted as an int32 by min(shift, 31) and clamped
+    to [0, 2^(out_bits−1) − 1]; per pixel, each register tile of OCT
+    channels (4 where oc <= 4, else 8) stored as one 4-, 8- or 16-byte
+    word where it is whole and its offset in the (16-byte aligned)
+    output is a multiple of the word, else value by value.  Returns the
+    (N, H, W, oc) container read back from the bytes written, and the
+    numbers of word and single-value stores."""
+    n, oc, h, wd = acc.shape
+    hi = (1 << (out_bits - 1)) - 1
+    dt = conv2d.container_dtype(out_bits)
+    size = torch.iinfo(dt).bits // 8
+    v = torch.clamp(acc.to(torch.int64) >> min(shift, 31), 0, hi)
+    v = v.permute(0, 2, 3, 1).reshape(-1, oc)             # pixels × oc
+    mem = torch.full((v.shape[0] * oc * size,), 0xA5, dtype=torch.uint8)
+    little = [(v >> (8 * b)) & 0xFF for b in range(size)]  # value bytes
+    oct_ = 4 if oc <= 4 else 8
+    words = singles = 0
+    for pix in range(v.shape[0]):
+        for o0 in range(0, oc, oct_):
+            n_ch = min(oct_, oc - o0)
+            at = (pix * oc + o0) * size
+            whole = n_ch == oct_ and oct_ * size in (4, 8, 16) \
+                and at % (oct_ * size) == 0
+            words += whole
+            singles += 0 if whole else n_ch
+            for j in range(n_ch):
+                for b in range(size):
+                    mem[at + j * size + b] = little[b][pix, o0 + j]
+    return mem.view(dt).reshape(n, h, wd, oc), words, singles
+
+
+@pytest.mark.parametrize("shift", [0, 7, 31, 40])
+@pytest.mark.parametrize("out_bits", [3, 8, 9, 16])
+@pytest.mark.parametrize("oc", [4, 5, 8, 12])
+def test_requant_epilogue_model_equals_requantize(shift, out_bits, oc):
+    """Accumulators over the whole int32 range, negative ones and both
+    extremes included; at the serving widths (oc = 4, 8) every pixel
+    is whole-word stores."""
+    rng = np.random.default_rng(shift + 17 * out_bits + oc)
+    a = rng.integers(-(1 << 31), 1 << 31, (2, oc, 3, 5))
+    a.reshape(-1)[:3] = (-(1 << 31), (1 << 31) - 1, -1)
+    acc = torch.from_numpy(a).to(torch.int32)
+    got, words, singles = requant_epilogue_model(acc, shift, out_bits)
+    assert torch.equal(got, conv2d.requantize(acc, shift, out_bits))
+    if oc in (4, 8):
+        assert singles == 0 and words == 2 * 3 * 5
+
+
+# (kernel, d, c): the serving points, the int8/int16 boundary and the
+# widest widths each entry takes
+REQUANT_ENTRY_CASES = [("fused_dot_layer", 8, 6), ("fused_dot_layer", 6, 4),
+                       ("fused_dot_layer", 9, 8), ("fused_dot_layer", 16, 16),
+                       ("packed_dot_layer", 6, 4), ("packed_dot_layer", 8, 3),
+                       ("packed_dot_layer", 9, 3), ("packed_dot_layer", 16, 12)]
+
+
+@pytest.mark.parametrize("name,d,c", REQUANT_ENTRY_CASES)
+def test_requant_entries_equal_requantize_of_plain(name, d, c):
+    """On the CPU each ``*_requant`` wrapper is ``_requantize`` of the
+    int32 wrapper's plain version, at the layer's own shift and data
+    bits, also past shift 31."""
+    from repro_torch.core import cnn
+    rng = np.random.default_rng(5 * d + c)
+    x, w = operands(rng, (2, 6, 9, 3), 5, d, c)
+    x, w = torch.from_numpy(x), torch.from_numpy(w)
+    layer = getattr(base, name)
+    requant = getattr(base, f"{name}_requant")
+    acc = layer(x, w, data_bits=d, coeff_bits=c)
+    for shift in (0, 7, 40):
+        spec = cnn.ConvLayerSpec(3, 5, data_bits=d, coeff_bits=c,
+                                 shift=shift)
+        got = requant(x, w, data_bits=d, coeff_bits=c, shift=shift,
+                      out_bits=d)
+        assert got.dtype == conv2d.container_dtype(d)
+        assert torch.equal(got, cnn._requantize(acc, spec))
+
+
+def test_fused_dot_routes_are_fixed_by_the_dot_dtype():
+    """dp4a for int8 dots, the CUDA cores' multiply-add for int32 ones:
+    the C entry runs dp4a exactly where the wrapper's narrowing leaves
+    both containers int8, which is where ``fused_dot_route`` names it;
+    the plain version on the CPU takes either kind of dot."""
+    assert base.fused_dot_route(8, 8) == "dp4a"
+    assert base.fused_dot_route(9, 8) == base.fused_dot_route(8, 9) == "imad"
+    for d, c in CONTAINER_POINTS:
+        x = torch.zeros((1, 4, 4, 2), dtype=conv2d.container_dtype(d))
+        w = torch.zeros((3, 2, 3, 3), dtype=conv2d.container_dtype(c))
+        xn, wn = conv2d.narrow_to_dot_dtype(x, w, d, c)
+        both_int8 = xn.dtype == wn.dtype == torch.int8
+        assert (base.fused_dot_route(d, c) == "dp4a") == both_int8, (d, c)
+    x = torch.zeros((1, 4, 4, 2), dtype=torch.int16)
+    w = torch.zeros((3, 2, 3, 3), dtype=torch.int8)
+    assert base.fused_dot_layer(x, w, data_bits=9,
+                                coeff_bits=8).shape == (1, 3, 4, 4)
+    assert base.fused_dot_layer_requant(
+        x, w, data_bits=9, coeff_bits=8, shift=7,
+        out_bits=9).shape == (1, 4, 4, 3)

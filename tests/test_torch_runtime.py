@@ -1,10 +1,13 @@
 """The port's batch-bucketed runtime (``repro_torch.runtime.compiled``)
 held against the reference's ``CompiledCNN``: outputs at every rung of
-``bucket_ladder(16)`` and past it, the same requests from the same seed,
-admission checks, the single-flight cache, abort polling, and no silent
-fallback to the CPU."""
+``bucket_ladder(16)`` and past it (on a narrow net and on both
+committed plans, whose dot layers run the requantizing entries), the
+same requests from the same seed, admission checks, the single-flight
+cache, abort polling, and no silent fallback to the CPU."""
 
+import dataclasses
 import threading
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -13,10 +16,12 @@ import pytest
 import torch
 
 from repro.core import cnn as ref_cnn
+from repro.core import deploy as ref_deploy
 from repro.runtime import CompiledCNN as RefCompiledCNN
 from repro.runtime import bucket_ladder as ref_bucket_ladder
 from repro_torch import convert
-from repro_torch.core import cnn
+from repro_torch.blocks import base
+from repro_torch.core import cnn, deploy
 from repro_torch.kernels import conv2d
 from repro_torch.runtime import (CompiledCNN, DispatchAborted,
                                  ExecutableCache, bucket_ladder)
@@ -64,6 +69,52 @@ def test_compiled_matches_reference_at_every_bucket(pair, n):
     got = mine(xs)
     assert got.dtype == torch.int8 and got.device.type == "cpu"
     assert np.array_equal(got.numpy(), want)
+
+
+SRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+GOLDEN = SRC / "golden" / "quickstart_reference.npz"
+
+
+@pytest.fixture(scope="module", params=["quickstart_v5e",
+                                        "quickstart_v5e_conv1_conv3"])
+def plan_pair(request):
+    """Both runtimes on a committed plan with the reference's golden
+    weights, images cut to 16 x 24 (the weights do not depend on the
+    image size)."""
+    text = (SRC / "plans" / f"{request.param}.json").read_text()
+    ref_cfg = dataclasses.replace(
+        ref_deploy.plan_config(ref_deploy.DeploymentPlan.from_json(text)),
+        img_h=16, img_w=24)
+    plan = deploy.DeploymentPlan.from_json(text)
+    cfg = dataclasses.replace(deploy.plan_config(plan), img_h=16, img_w=24)
+    with np.load(GOLDEN) as z:
+        arrays = [z[f"{request.param}.w{i}"] for i in range(len(cfg.layers))]
+    theirs = RefCompiledCNN(ref_cfg, [jnp.asarray(a) for a in arrays],
+                            plan.block_names(), max_batch=16, warmup=False)
+    mine = CompiledCNN(cfg, convert.params_from_numpy(arrays, cfg, "cpu"),
+                       plan.block_names(), max_batch=16, device="cpu")
+    return theirs, mine
+
+
+@pytest.mark.parametrize("n", list(bucket_ladder(16)) + [3, 17])
+def test_committed_plans_match_reference_at_every_bucket(plan_pair, n,
+                                                         monkeypatch):
+    """Each dot layer (conv4, conv3 packed or not) goes through its
+    kernel's requantizing entry, Conv1 through its layer kernel and the
+    torch requantize; the outputs equal the reference's at every bucket."""
+    theirs, mine = plan_pair
+    calls = []
+    for name in ("fused_dot_layer_requant_plain",
+                 "packed_dot_layer_requant_plain"):
+        fn = getattr(base, name)
+        monkeypatch.setattr(base, name, lambda *a, _f=fn, _n=name, **k: (
+            calls.append(_n), _f(*a, **k))[1])
+    xs = np.stack(theirs.sample_inputs(n, seed=n))
+    got = mine(xs)
+    assert np.array_equal(got.numpy(), np.asarray(theirs(xs)))
+    blocks = mine.blocks
+    dots = sum(b.name != "conv1" for b in blocks)
+    assert len(calls) == dots * -(-n // 16)
 
 
 def test_single_request_and_empty_batch(pair):
