@@ -30,12 +30,15 @@ order (any mismatch or error raises and the exit code is non-zero):
    requantizing entry followed by the torch shift, clamp, cast and
    channels-last copy; timed here only); K1's route at each shape
    (dp4a for int8 dots) is printed;
-4. plane kernels (K4–K6) the same way: at P = 1 on 32×128, at the
-   quickstart layers' plane counts (out_ch·in_ch, or channel pairs ·
-   in_ch) and bits, where they are timed (``library_ms``: one grouped
-   ``F.conv2d``, groups = P), on the edge grid, on int16 container-range
-   inputs, and through ``ConvBlock.apply`` against the JAX reference's
-   golden ``apply`` outputs;
+4. plane kernels (K4–K6) the same way: at P = 1 on 32×128, on planes
+   that fill no tile (P = 3 on 17×33, P = 4 on 1×1) and on P = 300
+   planes of 16×24, at the quickstart layers' plane counts (out_ch·in_ch,
+   or channel pairs · in_ch, as the single-image ``plane_layer`` launches
+   them) and at P = 1 (one launch per plane, as ``cnn_forward_loop`` makes
+   them), with their bits, where they are timed (``library_ms``: one
+   grouped ``F.conv2d``, groups = P), on the edge grid, on int16
+   container-range inputs, and through ``ConvBlock.apply`` against the
+   JAX reference's golden ``apply`` outputs;
 5. serve: ``repro_torch.launch.serve``'s code path on both committed
    plans with the golden weights, 64 requests, max_batch 16, after one
    untimed warm-up pass; outputs must equal the JAX reference's golden
@@ -152,12 +155,17 @@ REPLACES = {
 }
 # plane-kernel cases at the quickstart layers (1→8, 8→8, 8→4 channels,
 # 32×128): (kernel, P, d, c, on the own v5e plan's path); P is out_ch ·
-# in_ch for conv2 and channel pairs · in_ch for conv3/conv4
+# in_ch for conv2 and channel pairs · in_ch for conv3/conv4 in the
+# single-image ``plane_layer``, and 1 in ``cnn_forward_loop``, which makes
+# nearly all of the plane kernels' launches (one per plane)
 PLANE_CASES = (
+    ("conv2_planes", 1, 8, 6, False),
     ("conv2_planes", 8, 8, 6, True), ("conv2_planes", 64, 8, 6, False),
     ("conv2_planes", 32, 6, 4, False),
+    ("conv3_planes", 1, 8, 6, False), ("conv3_planes", 1, 6, 4, False),
     ("conv3_planes", 4, 8, 6, False), ("conv3_planes", 32, 8, 6, True),
     ("conv3_planes", 16, 6, 4, False),
+    ("conv4_planes", 1, 8, 6, False), ("conv4_planes", 1, 6, 4, False),
     ("conv4_planes", 4, 8, 6, False), ("conv4_planes", 32, 8, 6, False),
     ("conv4_planes", 16, 6, 4, True),
 )
@@ -593,6 +601,14 @@ def check_plane_kernels():
         for d, c in ((8, 6), (6, 6), (16, 16)):
             x, wk = plane_operands(rng, 1, 32, 128, d, c, n_out)
             compare(name, f"P=1 (32,128) d{d}c{c}", x, wk, d, c)
+
+    print("[planes] planes that fit no tile: P=3 on (17, 33), P=4 on "
+          "(1, 1), and P=300 on (16, 24)")
+    for name, (_, _, n_out) in wrappers.items():
+        for p, h, w in ((3, 17, 33), (4, 1, 1), (300, 16, 24)):
+            for d, c in ((8, 6), (6, 4), (16, 16)):
+                x, wk = plane_operands(rng, p, h, w, d, c, n_out)
+                compare(name, f"P={p} ({h},{w}) d{d}c{c}", x, wk, d, c)
 
     print("[planes] the quickstart layers' plane counts on 32x128, timed")
     for name, p, d, c, on_plan in PLANE_CASES:

@@ -112,7 +112,11 @@ def library_of(entry: str) -> str:
 
 def kernel(entry: str, argtypes: Sequence) -> Callable[..., int]:
     """The C entry ``repro_<entry>``, building and loading its library
-    at first use."""
+    at first use.  A loaded entry is returned without taking the lock
+    (a dict read is atomic, and an entry is stored only once bound)."""
+    fn = _entries.get(entry)
+    if fn is not None:
+        return fn
     with _lock:
         fn = _entries.get(entry)
         if fn is None:

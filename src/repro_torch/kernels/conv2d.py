@@ -67,9 +67,14 @@ def _dot_dtype(data_bits: int, coeff_bits: int) -> torch.dtype:
 
 def narrow_to_dot_dtype(x, w, data_bits: int, coeff_bits: int):
     """The reference's dots narrow both operands to int8 where
-    ``_dot_dtype`` is int8; the kernels take the narrowed containers."""
+    ``_dot_dtype`` is int8; the kernels take the narrowed containers.
+    An operand already in int8 is returned as it is, without a call
+    into torch (the per-plane path makes one launch per plane)."""
     if _dot_dtype(data_bits, coeff_bits) == torch.int8:
-        return x.to(torch.int8), w.to(torch.int8)
+        if x.dtype != torch.int8:
+            x = x.to(torch.int8)
+        if w.dtype != torch.int8:
+            w = w.to(torch.int8)
     return x, w
 
 
@@ -375,7 +380,12 @@ def launch_planes(wrapper, argtypes, x: torch.Tensor, w: torch.Tensor,
     stream, add one to ``wrapper.launches``, and return the int32
     output (P, H, W), or (P, 2, H, W) for two outputs.  Raises on what
     the kernel does not take and on any launch error; never falls back.
-    An empty output launches nothing."""
+    An empty output launches nothing.  The per-plane path makes one such
+    call per plane, so the host path is kept short: the bound entry is
+    looked up without a lock, and the current stream's raw handle is
+    read with one C call on each launch (no ``torch.cuda.Stream`` is
+    built), which keeps a launch under ``torch.cuda.stream(s)`` on
+    ``s``."""
     name = wrapper.__name__
     _check_launch(name, x, w)
     p, h, wd = x.shape
@@ -387,7 +397,7 @@ def launch_planes(wrapper, argtypes, x: torch.Tensor, w: torch.Tensor,
     err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
              int(x.dtype == torch.int16), int(w.dtype == torch.int16),
              p, h, wd, *extra,
-             torch.cuda.current_stream(x.device).cuda_stream)
+             torch._C._cuda_getCurrentRawStream(x.device.index))
     build.check(name, err)
     wrapper.launches += 1
     return out

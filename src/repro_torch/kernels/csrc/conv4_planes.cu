@@ -12,55 +12,42 @@
 // wide widths); the wrapper narrows to int8 where the reference's dot does.
 //
 // Bound on the H100: memory bytes (one container read and two int32 writes
-// per pixel against 36 integer operations).  Design: one thread per output
-// pixel in a grid-stride loop; the plane's 18 weights in registers; each tap
-// is read once and feeds both dots; neighbouring threads write neighbouring
-// outputs of each of the two planes.
+// per pixel against 36 integer operations), and below that, at the per-plane
+// path's small launches (8 blocks at P = 1), by each block's chain of
+// latencies.  The first version of this kernel ran one thread per pixel in a
+// grid-stride loop: two 64-bit divisions per pixel at the head of its load
+// chain, the plane's 18 weights reloaded per pixel, and 9 taps read from
+// global memory behind four bounds checks each.  Design: the staged tile of
+// common.cuh, one block per 16 x 32 tile of one plane found with one 32-bit
+// division; the halo tile staged with zeros outside the plane, each thread's
+// loads issued together; the plane's weights staged once per block while
+// the tile's loads are in flight; 2 pixels of one column per thread, the
+// window rows they share read once into registers, 18 multiply-adds per
+// pixel on the CUDA cores (faster here than __dp4a on int8 dots); each
+// output plane's stores coalesced along W (common.cuh: two_dot_planes).  A
+// block stages one tile, so there is nothing for cp.async or TMA to
+// overlap.
 #include "common.cuh"
 
 namespace {
 
 template <typename TX, typename TW>
-__global__ void __launch_bounds__(repro::THREADS)
+__global__ void __launch_bounds__(repro::TILE_THREADS)
 conv4_planes_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
-                    int32_t* __restrict__ out, int p, int h, int wd) {
-  const int64_t hw = static_cast<int64_t>(h) * wd;
-  const int64_t pixels = hw * p;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < pixels; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t plane = i / hw;
-    const int64_t pix = i % hw;
-    const int row = static_cast<int>(pix / wd);
-    const int col = static_cast<int>(pix % wd);
-    const TX* xp = x + plane * hw;
-    const TW* wp = w + plane * 18;
-    uint32_t w0[9], w1[9];
-#pragma unroll
-    for (int t = 0; t < 9; ++t) {
-      w0[t] = repro::word(wp[t]);
-      w1[t] = repro::word(wp[9 + t]);
-    }
-    uint32_t acc0 = 0u, acc1 = 0u;
-#pragma unroll
-    for (int t = 0; t < 9; ++t) {
-      const uint32_t tap = repro::plane_tap(xp, row, col, t, h, wd);
-      acc0 += tap * w0[t];
-      acc1 += tap * w1[t];
-    }
-    int32_t* op = out + plane * 2 * hw + pix;
-    op[0] = static_cast<int32_t>(acc0);
-    op[hw] = static_cast<int32_t>(acc1);
-  }
+                    int32_t* __restrict__ out, int h, int wd) {
+  __shared__ __align__(16) uint32_t xs[repro::PLANE];
+  __shared__ __align__(16) uint32_t ws[repro::PLANE_WORDS];
+  const repro::TilePos tp = repro::tile_pos(wd);
+  repro::two_dot_planes(xs, ws, x, w + tp.img * 18, out, tp, h, wd);
 }
 
 template <typename TX, typename TW>
 void launch(const void* x, const void* w, void* out, int p, int h, int wd,
             cudaStream_t stream) {
-  const int64_t pixels = static_cast<int64_t>(p) * h * wd;
   conv4_planes_kernel<TX, TW>
-      <<<repro::grid_for(pixels), repro::THREADS, 0, stream>>>(
+      <<<repro::tile_grid(p, h, wd), repro::TILE_THREADS, 0, stream>>>(
           static_cast<const TX*>(x), static_cast<const TW*>(w),
-          static_cast<int32_t*>(out), p, h, wd);
+          static_cast<int32_t*>(out), h, wd);
 }
 
 }  // namespace

@@ -43,21 +43,10 @@
 
 namespace {
 
-using repro::HALO_W;
 using repro::ICC;
+using repro::load_window;
 using repro::PLANE;
 using repro::PPT;
-
-// The (PPT + 2) x 3 window of staged words under this thread's pixels.
-__device__ __forceinline__ void load_window(uint32_t (&win)[PPT + 2][3],
-                                            const uint32_t* plane,
-                                            const repro::TilePos& tp) {
-  const uint32_t* xc = plane + tp.r0 * HALO_W + tp.col;
-#pragma unroll
-  for (int r = 0; r < PPT + 2; ++r)
-#pragma unroll
-    for (int q = 0; q < 3; ++q) win[r][q] = xc[r * HALO_W + q];
-}
 
 __device__ __forceinline__ uint32_t dp4a(uint32_t a, uint32_t b, uint32_t c) {
   return static_cast<uint32_t>(__dp4a(static_cast<int>(a),

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.conv1d import causal_conv1d as conv1d_kernel
 from repro_torch.models.layers import const_init, dense_init, rms_norm
 
@@ -230,7 +231,10 @@ def mamba_block(p, x: torch.Tensor, cfg, *, cache=None):
     return out, new_cache
 
 
-def init_mamba_cache(cfg, batch: int, device="cpu"):
+def init_mamba_cache(cfg, batch: int, device: DeviceLike = "cuda"):
+    """Zero-initialized decode cache of one Mamba layer, on the card
+    unless the caller passes ``device="cpu"``."""
+    device = resolve_device(device)
     s = cfg.ssm
     inner, nh = ssm_dims(cfg)
     gn = s.n_groups * s.state_dim

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.configs.base import (ATTN, LOCAL_ATTN, MAMBA, DENSE, MOE,
                                       NONE)
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (const_init, dense_init, embed_init,
@@ -99,9 +100,12 @@ def init_params(gen, cfg):
 # cache
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg, batch: int, max_len: int, device="cpu"):
-    """Zero-initialized decode cache (leaves lead with n_cycles)."""
+def init_cache(cfg, batch: int, max_len: int,
+               device: DeviceLike = "cuda"):
+    """Zero-initialized decode cache (leaves lead with n_cycles), on the
+    card unless the caller passes ``device="cpu"``."""
     check_supported(cfg)
+    device = resolve_device(device)
     dt = cfg.torch_dtype
     cache = {}
     for j, sub in enumerate(cfg.layer_cycle):

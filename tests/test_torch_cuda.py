@@ -352,6 +352,49 @@ def test_plane_kernel_container_range_int16_inputs_on_card(cuda, name):
                            plain(xc, wc, data_bits=d, coeff_bits=c))
 
 
+# the per-plane path's P = 1, planes that fill no tile (17 x 33, 1 x 1)
+# and a grid of many planes; the serving points, both containers and the
+# widest widths
+PLANE_SHAPES = [(1, 32, 128), (3, 17, 33), (4, 1, 1), (300, 16, 24)]
+SHAPE_POINTS = [(8, 6), (6, 4), (16, 16), (9, 3), (3, 9)]
+
+
+@pytest.mark.parametrize("shape", PLANE_SHAPES,
+                         ids=["x".join(map(str, s)) for s in PLANE_SHAPES])
+@pytest.mark.parametrize("name", sorted(PLANE_KERNELS))
+def test_plane_kernel_shapes_on_card(cuda, name, shape):
+    kernel, plain = PLANE_KERNELS[name]
+    rng = np.random.default_rng(sum(shape))
+    for d, c in SHAPE_POINTS:
+        x, w = plane_operands(rng, name, *shape, d, c)
+        xc, wc = x.to(cuda), w.to(cuda)
+        y = kernel(xc, wc, data_bits=d, coeff_bits=c)
+        assert torch.equal(y, plain(xc, wc, data_bits=d, coeff_bits=c)), \
+            (d, c)
+
+
+@pytest.mark.parametrize("name", sorted(PLANE_KERNELS))
+def test_plane_kernel_launches_on_the_current_stream(cuda, name):
+    """Under ``torch.cuda.stream(s)`` the kernel runs on s, after the
+    work queued there before it: its input is written on s behind a
+    sleep, so a launch on another stream would read the zeros the
+    input held before."""
+    kernel, plain = PLANE_KERNELS[name]
+    x, w = plane_operands(np.random.default_rng(3), name, 4, 32, 128, 8, 6)
+    xc, wc = x.to(cuda), w.to(cuda)
+    staged = torch.zeros_like(xc)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    before = kernel.launches
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(50_000_000)
+        staged.copy_(xc)
+        y = kernel(staged, wc, data_bits=8, coeff_bits=6)
+    side.synchronize()
+    assert kernel.launches == before + 1
+    assert torch.equal(y, plain(xc, wc, data_bits=8, coeff_bits=6))
+
+
 @pytest.mark.parametrize("name", sorted(PLANE_KERNELS))
 def test_plane_kernel_refuses_what_it_does_not_take(cuda, name):
     kernel, _ = PLANE_KERNELS[name]

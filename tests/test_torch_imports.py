@@ -100,3 +100,20 @@ def test_build_names_a_library_per_source_hash():
     assert build.BUILD_DIR == ROOT / "build" / "repro_torch"
     with pytest.raises(KeyError, match="unknown kernel"):
         build.library_path("conv9_layer")
+
+
+def test_bound_entry_is_returned_without_the_build_lock(monkeypatch):
+    """A loaded entry comes back while another thread holds the build
+    lock (the per-plane path looks its entry up once per plane)."""
+    import threading
+    from repro_torch.kernels import build
+    bound = object()
+    monkeypatch.setitem(build._entries, "conv4_planes", bound)
+    got = []
+    with build._lock:
+        t = threading.Thread(
+            target=lambda: got.append(build.kernel("conv4_planes", ())))
+        t.start()
+        t.join(timeout=10)
+        assert not t.is_alive()
+    assert got == [bound]

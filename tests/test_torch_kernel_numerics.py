@@ -35,6 +35,17 @@ plain version (which the card tests hold the kernel against).
   by a sign-extending byte permute; the packed dot per channel, the
   field split per channel, the sums over channels in the staged order.
   The model equals ``packed_dot_layer_plain`` bit for bit.
+* K5 ``conv3_planes`` and K6 ``conv4_planes`` (``csrc/conv3_planes.cu``,
+  ``csrc/conv4_planes.cu``) over the staged tile of ``common.cuh`` at
+  ic = 1: each block's halo tile of one plane, zeros outside the plane,
+  each thread's 2 pixels of one column from its 4 x 3 window, the
+  stores cropped to the plane.  Conv3 in its packing regime: the packed
+  operand (w_hi << S) + w_lo modulo 2^32 and the signed field split;
+  otherwise two dots, a multiply-add per (tap, output), int8 dots
+  included (dp4a was slower here).
+  The models equal ``conv{3,4}_planes_plain`` bit for bit, and on a few
+  points the reference's ``ConvBlock.apply`` (Pallas in interpret
+  mode).
 * The requantizing epilogue of K1 and K2: the int32 sum shifted by
   min(shift, 31), clamped to [0, 2^(out_bits−1) − 1], each pixel's
   channels packed into one 4-, 8- or 16-byte word where they fill the
@@ -44,14 +55,16 @@ plain version (which the card tests hold the kernel against).
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernel_numerics.py
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
 
+import repro.blocks as ref_blocks
 from repro_torch.blocks import base
 from repro_torch.kernels import conv2d, flash_attention as fa
-from torch_parity import operands
+from torch_parity import np_container, operands
 
 U32 = (1 << 32) - 1
 
@@ -551,3 +564,156 @@ def test_fused_dot_routes_are_fixed_by_the_dot_dtype():
     assert base.fused_dot_layer_requant(
         x, w, data_bits=9, coeff_bits=8, shift=7,
         out_bits=9).shape == (1, 4, 4, 3)
+
+
+# ---------------------------------------------------------------------------
+# K5 and K6: the plane kernels over the staged tile
+# ---------------------------------------------------------------------------
+
+# common.cuh's tile: TILE_THREADS threads, each PPT rows of one column
+TILE_THREADS, TILE_H, TILE_W, PPT = 256, 16, 32, 2
+
+
+def staged_plane_tiles(x: torch.Tensor) -> torch.Tensor:
+    """x (P, H, W) as ``stage(..., ic = 1, ...)`` leaves it in shared
+    memory, for every block (plane, tile row, tile column): the (TILE_H +
+    2, TILE_W + 2) halo tile of sign-extended values, zeros outside the
+    plane, also where the tile overhangs it.  (P, TY, TX, 18, 34)."""
+    p, h, wd = x.shape
+    ty, tx = -(-h // TILE_H), -(-wd // TILE_W)
+    xpad = F.pad(x.to(torch.int64),
+                 (1, tx * TILE_W + 1 - wd, 1, ty * TILE_H + 1 - h))
+    rows = torch.arange(ty)[:, None] * TILE_H + torch.arange(TILE_H + 2)
+    cols = torch.arange(tx)[:, None] * TILE_W + torch.arange(TILE_W + 2)
+    return xpad[:, rows[:, None, :, None], cols[None, :, None, :]]
+
+
+def thread_windows(tiles: torch.Tensor) -> torch.Tensor:
+    """Each thread's (PPT + 2) x 3 window of its block's staged tile
+    (``load_window``): thread i owns column i % TILE_W from row
+    (i / TILE_W) · PPT.  (..., TILE_THREADS, PPT + 2, 3)."""
+    i = torch.arange(TILE_THREADS)
+    r = (i // TILE_W * PPT)[:, None] + torch.arange(PPT + 2)
+    q = (i % TILE_W)[:, None] + torch.arange(3)
+    return tiles[..., r[:, :, None], q[:, None, :]]
+
+
+def write_plane_pixels(acc: torch.Tensor, h: int, wd: int) -> torch.Tensor:
+    """``write_pixels<int32_t, 2>``: thread i's pixel p, output j, lands
+    at row tr0 + (i / TILE_W) · PPT + p, column tc0 + i % TILE_W of
+    output plane j, where it lies inside the plane.  acc (P, TY, TX,
+    TILE_THREADS, PPT, 2) → (P, 2, H, W); each tile pixel is written by
+    exactly one (thread, pixel)."""
+    p, ty, tx = acc.shape[:3]
+    i = torch.arange(TILE_THREADS)
+    rows = (i // TILE_W * PPT)[:, None] + torch.arange(PPT)    # (256, PPT)
+    cols = (i % TILE_W)[:, None].expand(-1, PPT)
+    hits = torch.zeros((TILE_H, TILE_W), dtype=torch.int64)
+    hits.index_put_((rows.reshape(-1), cols.reshape(-1)),
+                    torch.ones(TILE_THREADS * PPT, dtype=torch.int64),
+                    accumulate=True)
+    assert bool((hits == 1).all())
+    tile = torch.zeros((p, ty, tx, 2, TILE_H, TILE_W), dtype=torch.int64)
+    tile[:, :, :, :, rows, cols] = acc.permute(0, 1, 2, 5, 3, 4)
+    out = tile.permute(0, 3, 1, 4, 2, 5).reshape(p, 2, ty * TILE_H,
+                                                 tx * TILE_W)
+    return _signed(out[:, :, :h, :wd]).to(torch.int32)
+
+
+def plane_tile_model(name: str, x: torch.Tensor, w: torch.Tensor, *,
+                     data_bits: int, coeff_bits: int) -> torch.Tensor:
+    """``conv3_planes`` / ``conv4_planes`` as the kernels compute them on
+    x (P, H, W) and w (P, 2, 3, 3), after the wrapper's narrowing:
+    * Conv3 in its packing regime: the staged packed operands
+      (w_hi << S) + w_lo modulo 2^32, one dot per pixel, the signed field
+      split in registers;
+    * otherwise (Conv4, Conv3 outside the regime) two dots, a multiply-add
+      per (tap, output) modulo 2^32, for int8 dots too.
+    Every product is taken on signed values (exact in int64) and is the
+    same modulo 2^32 as the kernels' uint32_t one."""
+    d, c = data_bits, coeff_bits
+    p, h, wd = x.shape
+    packed = name == "conv3_planes" and conv2d.conv3_packed_ok(d, c)
+    if not packed:
+        x, w = conv2d.narrow_to_dot_dtype(x, w, d, c)
+    win = thread_windows(staged_plane_tiles(x))      # (P, TY, TX, 256, 4, 3)
+    wk = w.to(torch.int64).reshape(p, 1, 1, 1, 2, 3, 3)
+    acc = torch.zeros((*win.shape[:4], PPT, 2), dtype=torch.int64)
+    if packed:
+        s = conv2d._pack_shift(d, c)
+        op = _signed(((_word(wk[..., 0, :, :]) << s) + _word(wk[..., 1, :, :]))
+                     & U32)                          # (P, 1, 1, 1, 3, 3)
+        half, field = 1 << (s - 1), (1 << s) - 1
+        for pp in range(PPT):
+            a = torch.zeros(win.shape[:4], dtype=torch.int64)
+            for t in range(9):
+                a = (a + win[..., pp + t // 3, t % 3]
+                     * op[..., t // 3, t % 3]) & U32
+            lo = ((a + half) & field) - half
+            acc[..., pp, 0] = _signed((a - lo) & U32) >> s
+            acc[..., pp, 1] = lo & U32
+    else:
+        for pp in range(PPT):
+            for j in range(2):
+                a = torch.zeros(win.shape[:4], dtype=torch.int64)
+                for t in range(9):
+                    a = (a + win[..., pp + t // 3, t % 3]
+                         * wk[..., j, t // 3, t % 3]) & U32
+                acc[..., pp, j] = a
+    return write_plane_pixels(acc, h, wd)
+
+
+PLANE_PLAIN = {"conv3_planes": conv2d.conv3_planes_plain,
+               "conv4_planes": conv2d.conv4_planes_plain}
+# a tile with a short last column of tiles, planes that fill no tile
+PLANE_TILE_SHAPES = [(3, 16, 24), (2, 17, 33), (2, 1, 1)]
+
+
+def plane_operands(rng, shape, d, c, *, x_range=None):
+    """Planes over the signed d-bit range (or ``x_range``, then in an
+    int16 container) and (P, 2, 3, 3) weights over the signed c-bit
+    range, extremes forced in."""
+    x, _ = operands(rng, (*shape, 1), 1, d, c, x_range=x_range)
+    wlo, whi = -(1 << (c - 1)), (1 << (c - 1)) - 1
+    w = rng.integers(wlo, whi + 1, (shape[0], 2, 3, 3))
+    w.reshape(-1)[:2] = (wlo, whi)
+    return (torch.from_numpy(x[..., 0].copy()),
+            torch.from_numpy(w.astype(np_container(c))))
+
+
+@pytest.mark.parametrize("d", BITS)
+@pytest.mark.parametrize("c", BITS)
+@pytest.mark.parametrize("name", sorted(PLANE_PLAIN))
+def test_plane_tile_model_equals_plain(name, d, c):
+    """The full 3..16 × 3..16 grid (both sides of Conv3's packing
+    boundary d + c = 12 / 13, of the int8 dot and of the containers),
+    on planes of (16, 24), (17, 33) and (1, 1), with inputs over the
+    signed d-bit range and over the whole int16 container."""
+    rng = np.random.default_rng(1000 * (name == "conv3_planes") + 20 * d + c)
+    for shape in PLANE_TILE_SHAPES:
+        for x_range in (None, (-32768, 32767)):
+            x, w = plane_operands(rng, shape, d, c, x_range=x_range)
+            want = PLANE_PLAIN[name](x, w, data_bits=d, coeff_bits=c)
+            got = plane_tile_model(name, x, w, data_bits=d, coeff_bits=c)
+            assert torch.equal(got, want), (shape, x_range)
+
+
+# (block, d, c): Conv3 packed (int8 and int16 inputs), Conv3 outside the
+# regime in int8 and int32 dots, Conv4 in both
+APPLY_MODEL_POINTS = [("conv3", 6, 6), ("conv3", 9, 3), ("conv3", 8, 6),
+                      ("conv3", 16, 16), ("conv4", 8, 6), ("conv4", 9, 8)]
+
+
+@pytest.mark.parametrize("block,d,c", APPLY_MODEL_POINTS)
+def test_plane_tile_model_equals_reference_apply(block, d, c):
+    """On a plane of 32 x 24 (two tile rows, a short tile column) the
+    model of the block's plane kernel equals the reference's
+    ``ConvBlock.apply``, its Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(70 * d + c)
+    x, w = plane_operands(rng, (1, 32, 24), d, c)
+    want = np.asarray(ref_blocks.get_block(block).apply(
+        jnp.asarray(x[0].numpy()), jnp.asarray(w[0].numpy()), data_bits=d,
+        coeff_bits=c))
+    got = plane_tile_model(f"{block}_planes", x, w, data_bits=d,
+                           coeff_bits=c)[0]
+    assert np.array_equal(got.numpy(), want)

@@ -220,7 +220,8 @@ def test_mamba_block_prefill_then_decode(first, empty):
     rng = np.random.default_rng(4)
     x = rng.normal(size=(2, first + 2, cfg.d_model)).astype(np.float32)
     cache = ref_ssm.init_mamba_cache(cfg, 2)
-    tcache = {} if empty else ssm.init_mamba_cache(tcfg, 2)
+    tcache = {} if empty else ssm.init_mamba_cache(tcfg, 2,
+                                                      device="cpu")
     for lo, hi in ((0, first), (first, first + 1), (first + 1, first + 2)):
         y, cache = ref_ssm.mamba_block(p, jnp.asarray(x[:, lo:hi]), cfg,
                                        cache=cache)
