@@ -62,7 +62,10 @@ order (any mismatch or error raises and the exit code is non-zero):
    for a plan with layers pinned to conv2, conv1 and conv3, then 16
    requests served from the ``v5e`` plan; the counters are set to 0
    just before and read just after, and each plane kernel must have
-   launched;
+   launched; then, counted apart, ``cnn_forward_loop`` of the pinned
+   plan on a few seeded images with seeded weights (K4 at P = 1, one
+   launch per Conv2 plane, K3 and K5), equal to ``cnn_forward_ref`` on
+   the CPU;
 8. the LM path (K7, K8): the conv1d and attention kernels against their
    plain versions on the card at the full-width shapes (K7 bit-exact at
    the launches of a Mamba-2-1.3B layer: 4096 and 128 channels, a
@@ -178,6 +181,9 @@ SERVE_LAUNCHES = {
 }
 # the pins of the planned variant that runs conv2 (K4) and conv1 (K3)
 PINNED_PLAN_PINS = {0: "conv2", 1: "conv1", 2: "conv3"}
+# cnn_forward_loop of that variant: images, and the seed of its images
+# and weights
+PINNED_LOOP_IMAGES, PINNED_LOOP_SEED = 4, 18
 SERVED_FROM_OWN_PLAN = 16
 
 LM_GOLDEN = ROOT / "src" / "repro_torch" / "golden" / "lm_reference.npz"
@@ -935,11 +941,62 @@ def plan_on_card(entries):
         print(f"[plan] served {len(reqs)} requests from the own plan; "
               f"outputs equal cnn_forward_ref (CPU)")
         return {"sweep_seconds": sweep_s, "plan": plan.block_names(),
-                "bits": plan.bits(), "validate": vals}
+                "bits": plan.bits(), "validate": vals}, pinned
 
     want = {"conv1_layer", "conv2_planes", "conv3_planes", "conv4_planes",
             "fused_dot_layer_requant"}
-    return drive(entries, "plan on the card", want, run)
+    planned, pinned = drive(entries, "plan on the card", want, run)
+    planned["pinned_loop"] = pinned_loop(entries, pinned)
+    return planned
+
+
+def pinned_loop(entries, plan):
+    """Phase 7, last: ``cnn_forward_loop`` of the conv2-pinned ``plan``
+    on PINNED_LOOP_IMAGES images on the card against ``cnn_forward_ref``
+    on the CPU, with its own launch counts: K4 once per Conv2 plane (P =
+    1) of every image."""
+    import numpy as np
+    import torch
+    from repro_torch.core import cnn, deploy
+    from repro_torch.kernels import ops
+
+    pcfg = deploy.plan_config(plan)
+    blocks = plan.block_names()
+    params = cnn.init_cnn(torch.Generator().manual_seed(PINNED_LOOP_SEED),
+                          pcfg)
+    d0 = pcfg.layers[0].data_bits
+    xs = ops.quantize_fixed(torch.from_numpy(
+        np.random.default_rng(PINNED_LOOP_SEED).integers(
+            0, 1 << (d0 - 1), (PINNED_LOOP_IMAGES, pcfg.img_h, pcfg.img_w,
+                               pcfg.layers[0].in_channels))
+        .astype(np.float32)), d0)
+    on_card = [w.cuda() for w in params]
+
+    def run():
+        t0 = time.perf_counter()
+        ys = torch.stack([cnn.cnn_forward_loop(on_card, x.cuda(), pcfg,
+                                               blocks).cpu() for x in xs])
+        return ys, time.perf_counter() - t0
+    label = "cnn_forward_loop v5e pinned"
+    ys, dt = drive(entries, label, {PLANE_KERNEL_OF[b] for b in blocks}, run)
+    if not torch.equal(ys, cnn.cnn_forward_ref(params, xs, pcfg)):
+        raise AssertionError(f"{label}: differs from cnn_forward_ref on the "
+                             f"CPU")
+    k4 = LAUNCHES[label]["conv2_planes"]
+    planes = PINNED_LOOP_IMAGES * sum(
+        s.out_channels * s.in_channels for s in pcfg.layers
+        if s.block == "conv2")
+    if k4 != planes:
+        raise AssertionError(f"{label}: conv2_planes launched {k4} times, "
+                             f"want one per Conv2 plane ({planes})")
+    res = {"blocks": blocks, "bits": plan.bits(),
+           "images": PINNED_LOOP_IMAGES, "conv2_planes_launches": k4,
+           "ms_per_image": dt * 1e3 / PINNED_LOOP_IMAGES}
+    print(f"[plan] {label} {list(zip(blocks, plan.bits()))}: "
+          f"{PINNED_LOOP_IMAGES} images equal cnn_forward_ref (CPU), "
+          f"{res['ms_per_image']:.3f} ms per image, conv2_planes launched "
+          f"{k4} times (P = 1)")
+    return res
 
 
 def _tree_map(fn, tree):

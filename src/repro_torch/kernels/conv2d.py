@@ -181,7 +181,9 @@ def launch_layer(wrapper, argtypes, x: torch.Tensor, w: torch.Tensor,
     entry (``out_bits`` given), the channels-last activations (N, H, W,
     out_channels) in ``container_dtype(out_bits)``.  Raises on what the
     kernel does not take and on any launch error; never falls back.  An
-    empty output has nothing to compute and launches nothing."""
+    empty output has nothing to compute and launches nothing.  The stream
+    is read as ``launch_planes`` reads it: its raw handle, with one C
+    call."""
     name = wrapper.__name__
     _check_launch(name, x, w)
     if 4 * weight_words > SMEM_WEIGHT_BYTES:
@@ -201,7 +203,7 @@ def launch_layer(wrapper, argtypes, x: torch.Tensor, w: torch.Tensor,
     err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
              int(x.dtype == torch.int16), int(w.dtype == torch.int16),
              n, h, wd, ic, w.shape[0], *extra,
-             torch.cuda.current_stream(x.device).cuda_stream)
+             torch._C._cuda_getCurrentRawStream(x.device.index))
     build.check(name, err)
     wrapper.launches += 1
     return out

@@ -23,32 +23,9 @@
 
 namespace repro {
 
-// Threads per block of conv2_planes, one thread per output pixel (plane,
-// row, col) in a grid-stride loop.
-constexpr int THREADS = 128;
-constexpr int MAX_BLOCKS = 4096;
 // Output channels (or channel pairs) a thread keeps in registers while it
 // reads each input tap once: a register tile of the implicit GEMM.
 constexpr int OC_TILE = 8;
-
-inline int grid_for(int64_t pixels) {
-  int64_t blocks = (pixels + THREADS - 1) / THREADS;
-  return static_cast<int>(blocks < MAX_BLOCKS ? blocks : MAX_BLOCKS);
-}
-
-// The tap value at (row + di - 1, col + dj - 1) of one (H, W) plane, or 0
-// in the zero padding, sign-extended and then taken modulo 2^32
-// (conv2_planes).
-template <typename TX>
-__device__ __forceinline__ uint32_t plane_tap(const TX* __restrict__ xp,
-                                              int row, int col, int t, int h,
-                                              int wd) {
-  const int r = row + t / 3 - 1;
-  const int q = col + t % 3 - 1;
-  if (r < 0 || r >= h || q < 0 || q >= wd) return 0u;
-  return static_cast<uint32_t>(
-      static_cast<int32_t>(xp[static_cast<int64_t>(r) * wd + q]));
-}
 
 // A weight taken modulo 2^32 after sign extension.
 template <typename TW>
@@ -58,17 +35,17 @@ __device__ __forceinline__ uint32_t word(TW v) {
 
 // ---------------------------------------------------------------------------
 // The staged tile of the layer kernels (conv1_layer, fused_dot_layer,
-// packed_dot_layer) and of the plane kernels conv3_planes and conv4_planes
-// (a plane is an image of one channel).  A block of TILE_THREADS threads
-// takes a TILE_H x TILE_W tile of one image and stages it with its
-// one-pixel halo in shared memory, zeros written outside the image, so the
-// inner loops carry no bounds checks.  Thread i owns the PPT vertically
-// adjacent pixels of column i % TILE_W from row (i / TILE_W) * PPT of the
-// tile: a warp is 32 neighbouring columns, so its reads of a staged plane
-// hit 32 banks and its stores are coalesced along W.  At the serving
-// shapes (32 x 128 images) a tile is a block and bucket 16 is 128 blocks
-// of 8 warps: one wave over the 132 SMs, each thread's chain of loads
-// short.
+// packed_dot_layer) and of the plane kernels conv2_planes, conv3_planes and
+// conv4_planes (a plane is an image of one channel).  A block of
+// TILE_THREADS threads takes a TILE_H x TILE_W tile of one image and stages
+// it with its one-pixel halo in shared memory, zeros written outside the
+// image, so the inner loops carry no bounds checks.  Thread i owns the PPT
+// vertically adjacent pixels of column i % TILE_W from row (i / TILE_W) *
+// PPT of the tile: a warp is 32 neighbouring columns, so its reads of a
+// staged plane hit 32 banks and its stores are coalesced along W.  At the
+// serving shapes (32 x 128 images) a tile is a block and bucket 16 is 128
+// blocks of 8 warps: one wave over the 132 SMs, each thread's chain of
+// loads short.
 // ---------------------------------------------------------------------------
 constexpr int TILE_THREADS = 256;
 constexpr int TILE_W = 32;                         // one warp across
@@ -356,14 +333,15 @@ __device__ __forceinline__ void write_pixels(TO* __restrict__ out,
 }
 
 // ---------------------------------------------------------------------------
-// The plane kernels of Conv3 and Conv4 (conv3_planes, conv4_planes) on the
-// same tile.  P planes x (P, H, W) are an (N = P, H, W, ic = 1) batch whose
-// images each carry their own weights w (P, 2, 3, 3): block (plane, tile)
-// stages its plane's halo tile with stage(..., ic = 1, ...) and, once, in
-// `between`, the plane's weights as PLANE_WORDS words in shared memory.
-// Every thread then reads those words with 16-byte broadcasts, computes
-// its PPT pixels of the plane's two outputs, and write_pixels stores them
-// into out (P, 2, H, W), coalesced along W.
+// The plane kernels (conv2_planes, conv3_planes, conv4_planes) on the same
+// tile.  P planes x (P, H, W) are an (N = P, H, W, ic = 1) batch whose
+// images each carry their own weights, w (P, 3, 3) or (P, 2, 3, 3): block
+// (plane, tile) stages its plane's halo tile with stage(..., ic = 1, ...)
+// and, once, in `between`, the plane's weights as PLANE_WORDS words in
+// shared memory.  Every thread then reads those words with 16-byte
+// broadcasts, computes its PPT pixels of the plane's one or two outputs,
+// and write_pixels stores them into out (P, H, W) or (P, 2, H, W),
+// coalesced along W.
 // ---------------------------------------------------------------------------
 constexpr int PLANE_WORDS = 20;   // 18 weights, padded to 16-byte loads
 
@@ -381,35 +359,37 @@ __device__ __forceinline__ void stage_plane(uint32_t* xs, uint32_t* ws,
   __syncthreads();
 }
 
-// Two independent 9-tap dots per pixel: conv4_kernel, and conv3_kernel
-// outside its packing regime, on plane tp.img of x with its weights wp
-// (2, 3, 3), into out (P, 2, H, W).  ws holds the 18 sign-extended
-// weights, w[j][t] at 9 * j + t, and each (tap, output) is a 32-bit
-// multiply-add on the CUDA cores, also for the int8 dots: __dp4a over a
-// window row's 3 taps packed into a word (fused_dot_layer's route at ic =
-// 1) ran 1.10-1.12x slower at every timed shape on the H100 (PERF.md).
-template <typename TX, typename TW>
-__device__ __forceinline__ void two_dot_planes(uint32_t* xs, uint32_t* ws,
-                                               const TX* __restrict__ x,
-                                               const TW* __restrict__ wp,
-                                               int32_t* __restrict__ out,
-                                               const TilePos& tp, int h,
-                                               int wd) {
+// NOUT independent 9-tap dots per pixel: conv2_kernel (NOUT = 1),
+// conv4_kernel and conv3_kernel outside its packing regime (NOUT = 2), on
+// plane tp.img of x with its weights wp (NOUT, 3, 3), into out (P, NOUT,
+// H, W).  ws holds the 9 * NOUT sign-extended weights, w[j][t] at 9 * j +
+// t, and each (tap, output) is a 32-bit multiply-add on the CUDA cores,
+// also for the int8 dots: __dp4a over a window row's 3 taps packed into a
+// word (fused_dot_layer's route at ic = 1) ran 1.10-1.12x slower at every
+// timed shape of conv4_planes on the H100 (PERF.md).
+template <int NOUT, typename TX, typename TW>
+__device__ __forceinline__ void dot_planes(uint32_t* xs, uint32_t* ws,
+                                           const TX* __restrict__ x,
+                                           const TW* __restrict__ wp,
+                                           int32_t* __restrict__ out,
+                                           const TilePos& tp, int h, int wd) {
+  constexpr int WORDS = (9 * NOUT + 3) / 4 * 4;   // whole 16-byte loads
+  static_assert(WORDS <= PLANE_WORDS, "the staged weights hold them");
   stage_plane(xs, ws, x, tp, h, wd,
-              [&](int i) { return i < 18 ? word(wp[i]) : 0u; });
-  uint32_t win[PPT + 2][3], wr[PLANE_WORDS], acc[PPT][2];
+              [&](int i) { return i < 9 * NOUT ? word(wp[i]) : 0u; });
+  uint32_t win[PPT + 2][3], wr[WORDS], acc[PPT][NOUT];
   load_window(win, xs, tp);
   load_words(wr, ws);
 #pragma unroll
   for (int p = 0; p < PPT; ++p)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    for (int j = 0; j < NOUT; ++j) {
       uint32_t a = 0u;
 #pragma unroll
       for (int t = 0; t < 9; ++t) a += win[p + t / 3][t % 3] * wr[9 * j + t];
       acc[p][j] = a;
     }
-  write_pixels<int32_t, 2>(out, acc, tp, h, wd, 2, 0, 0, 0);
+  write_pixels<int32_t, NOUT>(out, acc, tp, h, wd, NOUT, 0, 0, 0);
 }
 
 // Give a kernel the dynamic shared memory it needs: above 48 KB only after

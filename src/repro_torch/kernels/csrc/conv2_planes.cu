@@ -5,55 +5,49 @@
 // planes of a layer (repro/blocks/base.py::_apply_batched) or called on one
 // plane (ConvBlock.apply).  Each grid step forms the (th*w, 9) im2col of its
 // tile and dots it with the 9 taps in _dot_dtype (int8 when d, c <= 8, else
-// int32) into int32.  Here one launch covers every pixel of every plane.
+// int32) into int32 (H, W).
 //
-// The reference's int32 dot wraps modulo 2^32 at wide widths; the taps and
-// weights are sign-extended and the sum is taken in uint32_t, which gives
-// the same bits.  The wrapper narrows both operands to int8 where the
+// Sums are taken in uint32_t (the reference's int32 dot wraps modulo 2^32 at
+// wide widths); the wrapper narrows both operands to int8 where the
 // reference's int8 dot would.
 //
 // Bound on the H100: memory bytes (one container read and one int32 write
-// per pixel against 18 integer operations).  Design: one thread per output
-// pixel in a grid-stride loop; the plane's 9 weights are read into
-// registers (the threads of a block share a plane, so the loads hit the
-// same lines); neighbouring threads read neighbouring taps and write
-// neighbouring outputs.  A simple kernel: faster forms are later work.
+// per pixel against 18 integer operations), and below that, at the
+// per-plane path's small launches (8 blocks at P = 1), by each block's chain
+// of latencies.  The first version of this kernel ran one thread per pixel
+// in a grid-stride loop: two 64-bit divisions per pixel at the head of its
+// load chain, the plane's 9 weights reloaded per pixel, and 9 taps read from
+// global memory behind four bounds checks each.  Design: conv4_planes' with
+// one output, on the staged tile of common.cuh: one block per 16 x 32 tile
+// of one plane found with one 32-bit division; the halo tile staged with
+// zeros outside the plane, each thread's loads issued together; the plane's
+// 9 weights staged once per block while the tile's loads are in flight; 2
+// pixels of one column per thread, the window rows they share read once
+// into registers, 9 multiply-adds per pixel on the CUDA cores (faster than
+// __dp4a on int8 dots at conv4_planes' shapes, with twice the multiplies);
+// stores coalesced along W (common.cuh: dot_planes<1>).  A block stages one
+// tile, so there is nothing for cp.async or TMA to overlap.
 #include "common.cuh"
 
 namespace {
 
 template <typename TX, typename TW>
-__global__ void __launch_bounds__(repro::THREADS)
+__global__ void __launch_bounds__(repro::TILE_THREADS)
 conv2_planes_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
-                    int32_t* __restrict__ out, int p, int h, int wd) {
-  const int64_t hw = static_cast<int64_t>(h) * wd;
-  const int64_t pixels = hw * p;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < pixels; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t plane = i / hw;
-    const int row = static_cast<int>((i % hw) / wd);
-    const int col = static_cast<int>(i % wd);
-    const TX* xp = x + plane * hw;
-    const TW* wp = w + plane * 9;
-    uint32_t wk[9];
-#pragma unroll
-    for (int t = 0; t < 9; ++t) wk[t] = repro::word(wp[t]);
-    uint32_t acc = 0u;
-#pragma unroll
-    for (int t = 0; t < 9; ++t)
-      acc += repro::plane_tap(xp, row, col, t, h, wd) * wk[t];
-    out[i] = static_cast<int32_t>(acc);
-  }
+                    int32_t* __restrict__ out, int h, int wd) {
+  __shared__ __align__(16) uint32_t xs[repro::PLANE];
+  __shared__ __align__(16) uint32_t ws[repro::PLANE_WORDS];
+  const repro::TilePos tp = repro::tile_pos(wd);
+  repro::dot_planes<1>(xs, ws, x, w + tp.img * 9, out, tp, h, wd);
 }
 
 template <typename TX, typename TW>
 void launch(const void* x, const void* w, void* out, int p, int h, int wd,
             cudaStream_t stream) {
-  const int64_t pixels = static_cast<int64_t>(p) * h * wd;
   conv2_planes_kernel<TX, TW>
-      <<<repro::grid_for(pixels), repro::THREADS, 0, stream>>>(
+      <<<repro::tile_grid(p, h, wd), repro::TILE_THREADS, 0, stream>>>(
           static_cast<const TX*>(x), static_cast<const TW*>(w),
-          static_cast<int32_t*>(out), p, h, wd);
+          static_cast<int32_t*>(out), h, wd);
 }
 
 }  // namespace

@@ -11,7 +11,7 @@
 //     lo = ((acc + half) & (2^S - 1)) - half,   hi = (acc - lo) >> S
 // recovers them, into (2, H, W) = (hi, lo).  Outside the regime the
 // reference degrades to two dots in _dot_dtype (shift = 0 here), which run
-// Conv4's code (common.cuh: two_dot_planes).
+// Conv4's code (common.cuh: dot_planes).
 //
 // The operand is formed in uint32_t (a left shift of a negative signed value
 // is undefined before C++20) and every sum is taken in uint32_t, which gives
@@ -48,7 +48,7 @@ conv3_planes_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
   const repro::TilePos tp = repro::tile_pos(wd);
   const TW* wp = w + tp.img * 18;
   if constexpr (!PACKED) {
-    repro::two_dot_planes(xs, ws, x, wp, out, tp, h, wd);
+    repro::dot_planes<2>(xs, ws, x, wp, out, tp, h, wd);
   } else {
     repro::stage_plane(xs, ws, x, tp, h, wd, [&](int i) {
       return i < 9 ? (repro::word(wp[i]) << shift) + repro::word(wp[9 + i])

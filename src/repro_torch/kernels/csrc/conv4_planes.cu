@@ -24,7 +24,7 @@
 // the tile's loads are in flight; 2 pixels of one column per thread, the
 // window rows they share read once into registers, 18 multiply-adds per
 // pixel on the CUDA cores (faster here than __dp4a on int8 dots); each
-// output plane's stores coalesced along W (common.cuh: two_dot_planes).  A
+// output plane's stores coalesced along W (common.cuh: dot_planes).  A
 // block stages one tile, so there is nothing for cp.async or TMA to
 // overlap.
 #include "common.cuh"
@@ -38,7 +38,7 @@ conv4_planes_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
   __shared__ __align__(16) uint32_t xs[repro::PLANE];
   __shared__ __align__(16) uint32_t ws[repro::PLANE_WORDS];
   const repro::TilePos tp = repro::tile_pos(wd);
-  repro::two_dot_planes(xs, ws, x, w + tp.img * 18, out, tp, h, wd);
+  repro::dot_planes<2>(xs, ws, x, w + tp.img * 18, out, tp, h, wd);
 }
 
 template <typename TX, typename TW>

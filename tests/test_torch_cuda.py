@@ -209,6 +209,36 @@ def test_requant_entry_refuses_what_it_does_not_take(cuda, name):
     assert kernel.launches == before
 
 
+# every entry that goes through ``conv2d.launch_layer``: (kernel, plain,
+# the requantizing arguments)
+LAYER_ENTRIES = {name: (k, p, {}) for name, (k, p) in KERNELS.items()} | {
+    f"{name}_requant": (k, p, dict(shift=7, out_bits=8))
+    for name, (k, p) in REQUANT.items()}
+
+
+@pytest.mark.parametrize("name", sorted(LAYER_ENTRIES))
+def test_layer_kernel_launches_on_the_current_stream(cuda, name):
+    """Under ``torch.cuda.stream(s)`` a layer entry runs on s, after the
+    work queued there before it: its input is written on s behind a
+    sleep, so a launch on another stream would read the zeros the input
+    held before."""
+    kernel, plain, requant = LAYER_ENTRIES[name]
+    kw = dict(data_bits=8, coeff_bits=6, **requant)
+    x, w = operands(np.random.default_rng(4), (2, 32, 128, 8), 4, 8, 6)
+    xc, wc = torch.from_numpy(x).to(cuda), torch.from_numpy(w).to(cuda)
+    staged = torch.zeros_like(xc)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    before = kernel.launches
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(50_000_000)
+        staged.copy_(xc)
+        y = kernel(staged, wc, **kw)
+    side.synchronize()
+    assert kernel.launches == before + 1
+    assert torch.equal(y, plain(xc, wc, **kw))
+
+
 # Conv1 at the shapes its paths launch: the serving layer at bucket 1
 # and the per-plane call (one image, ic = oc = 1); and more than one
 # register tile of output channels over more than one staged chunk of

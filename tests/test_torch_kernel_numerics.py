@@ -35,16 +35,17 @@ plain version (which the card tests hold the kernel against).
   by a sign-extending byte permute; the packed dot per channel, the
   field split per channel, the sums over channels in the staged order.
   The model equals ``packed_dot_layer_plain`` bit for bit.
-* K5 ``conv3_planes`` and K6 ``conv4_planes`` (``csrc/conv3_planes.cu``,
-  ``csrc/conv4_planes.cu``) over the staged tile of ``common.cuh`` at
-  ic = 1: each block's halo tile of one plane, zeros outside the plane,
-  each thread's 2 pixels of one column from its 4 x 3 window, the
-  stores cropped to the plane.  Conv3 in its packing regime: the packed
-  operand (w_hi << S) + w_lo modulo 2^32 and the signed field split;
-  otherwise two dots, a multiply-add per (tap, output), int8 dots
-  included (dp4a was slower here).
-  The models equal ``conv{3,4}_planes_plain`` bit for bit, and on a few
-  points the reference's ``ConvBlock.apply`` (Pallas in interpret
+* K4 ``conv2_planes``, K5 ``conv3_planes`` and K6 ``conv4_planes``
+  (``csrc/conv{2,3,4}_planes.cu``) over the staged tile of
+  ``common.cuh`` at ic = 1: each block's halo tile of one plane, zeros
+  outside the plane, each thread's 2 pixels of one column from its 4 x 3
+  window, the stores cropped to the plane.  Conv3 in its packing regime:
+  the packed operand (w_hi << S) + w_lo modulo 2^32 and the signed field
+  split; otherwise one dot (Conv2) or two (Conv4, Conv3 outside the
+  regime), a multiply-add per (tap, output), int8 dots included (dp4a
+  was slower here).
+  The models equal ``conv{2,3,4}_planes_plain`` bit for bit, and on a
+  few points the reference's ``ConvBlock.apply`` (Pallas in interpret
   mode).
 * The requantizing epilogue of K1 and K2: the int32 sum shifted by
   min(shift, 31), clamped to [0, 2^(out_bits−1) − 1], each pixel's
@@ -567,7 +568,7 @@ def test_fused_dot_routes_are_fixed_by_the_dot_dtype():
 
 
 # ---------------------------------------------------------------------------
-# K5 and K6: the plane kernels over the staged tile
+# K4, K5 and K6: the plane kernels over the staged tile
 # ---------------------------------------------------------------------------
 
 # common.cuh's tile: TILE_THREADS threads, each PPT rows of one column
@@ -599,12 +600,12 @@ def thread_windows(tiles: torch.Tensor) -> torch.Tensor:
 
 
 def write_plane_pixels(acc: torch.Tensor, h: int, wd: int) -> torch.Tensor:
-    """``write_pixels<int32_t, 2>``: thread i's pixel p, output j, lands
-    at row tr0 + (i / TILE_W) · PPT + p, column tc0 + i % TILE_W of
+    """``write_pixels<int32_t, NOUT>``: thread i's pixel p, output j,
+    lands at row tr0 + (i / TILE_W) · PPT + p, column tc0 + i % TILE_W of
     output plane j, where it lies inside the plane.  acc (P, TY, TX,
-    TILE_THREADS, PPT, 2) → (P, 2, H, W); each tile pixel is written by
-    exactly one (thread, pixel)."""
-    p, ty, tx = acc.shape[:3]
+    TILE_THREADS, PPT, NOUT) → (P, NOUT, H, W); each tile pixel is
+    written by exactly one (thread, pixel)."""
+    p, ty, tx, n_out = (*acc.shape[:3], acc.shape[-1])
     i = torch.arange(TILE_THREADS)
     rows = (i // TILE_W * PPT)[:, None] + torch.arange(PPT)    # (256, PPT)
     cols = (i % TILE_W)[:, None].expand(-1, PPT)
@@ -613,32 +614,36 @@ def write_plane_pixels(acc: torch.Tensor, h: int, wd: int) -> torch.Tensor:
                     torch.ones(TILE_THREADS * PPT, dtype=torch.int64),
                     accumulate=True)
     assert bool((hits == 1).all())
-    tile = torch.zeros((p, ty, tx, 2, TILE_H, TILE_W), dtype=torch.int64)
+    tile = torch.zeros((p, ty, tx, n_out, TILE_H, TILE_W),
+                       dtype=torch.int64)
     tile[:, :, :, :, rows, cols] = acc.permute(0, 1, 2, 5, 3, 4)
-    out = tile.permute(0, 3, 1, 4, 2, 5).reshape(p, 2, ty * TILE_H,
+    out = tile.permute(0, 3, 1, 4, 2, 5).reshape(p, n_out, ty * TILE_H,
                                                  tx * TILE_W)
     return _signed(out[:, :, :h, :wd]).to(torch.int32)
 
 
 def plane_tile_model(name: str, x: torch.Tensor, w: torch.Tensor, *,
                      data_bits: int, coeff_bits: int) -> torch.Tensor:
-    """``conv3_planes`` / ``conv4_planes`` as the kernels compute them on
-    x (P, H, W) and w (P, 2, 3, 3), after the wrapper's narrowing:
+    """``conv2_planes`` / ``conv3_planes`` / ``conv4_planes`` as the
+    kernels compute them on x (P, H, W) and w (P, 3, 3) or (P, 2, 3, 3),
+    after the wrapper's narrowing:
     * Conv3 in its packing regime: the staged packed operands
       (w_hi << S) + w_lo modulo 2^32, one dot per pixel, the signed field
       split in registers;
-    * otherwise (Conv4, Conv3 outside the regime) two dots, a multiply-add
-      per (tap, output) modulo 2^32, for int8 dots too.
+    * otherwise one dot (Conv2, ``dot_planes<1>``) or two (Conv4, Conv3
+      outside the regime, ``dot_planes<2>``), a multiply-add per (tap,
+      output) modulo 2^32, for int8 dots too.
     Every product is taken on signed values (exact in int64) and is the
     same modulo 2^32 as the kernels' uint32_t one."""
     d, c = data_bits, coeff_bits
     p, h, wd = x.shape
+    n_out = 1 if name == "conv2_planes" else 2
     packed = name == "conv3_planes" and conv2d.conv3_packed_ok(d, c)
     if not packed:
         x, w = conv2d.narrow_to_dot_dtype(x, w, d, c)
     win = thread_windows(staged_plane_tiles(x))      # (P, TY, TX, 256, 4, 3)
-    wk = w.to(torch.int64).reshape(p, 1, 1, 1, 2, 3, 3)
-    acc = torch.zeros((*win.shape[:4], PPT, 2), dtype=torch.int64)
+    wk = w.to(torch.int64).reshape(p, 1, 1, 1, n_out, 3, 3)
+    acc = torch.zeros((*win.shape[:4], PPT, n_out), dtype=torch.int64)
     if packed:
         s = conv2d._pack_shift(d, c)
         op = _signed(((_word(wk[..., 0, :, :]) << s) + _word(wk[..., 1, :, :]))
@@ -654,28 +659,33 @@ def plane_tile_model(name: str, x: torch.Tensor, w: torch.Tensor, *,
             acc[..., pp, 1] = lo & U32
     else:
         for pp in range(PPT):
-            for j in range(2):
+            for j in range(n_out):
                 a = torch.zeros(win.shape[:4], dtype=torch.int64)
                 for t in range(9):
                     a = (a + win[..., pp + t // 3, t % 3]
                          * wk[..., j, t // 3, t % 3]) & U32
                 acc[..., pp, j] = a
-    return write_plane_pixels(acc, h, wd)
+    out = write_plane_pixels(acc, h, wd)
+    return out[:, 0] if n_out == 1 else out
 
 
-PLANE_PLAIN = {"conv3_planes": conv2d.conv3_planes_plain,
+PLANE_PLAIN = {"conv2_planes": conv2d.conv2_planes_plain,
+               "conv3_planes": conv2d.conv3_planes_plain,
                "conv4_planes": conv2d.conv4_planes_plain}
+# each kernel's seed offset
+PLANE_SEED = {"conv2_planes": 2000, "conv3_planes": 1000, "conv4_planes": 0}
 # a tile with a short last column of tiles, planes that fill no tile
 PLANE_TILE_SHAPES = [(3, 16, 24), (2, 17, 33), (2, 1, 1)]
 
 
-def plane_operands(rng, shape, d, c, *, x_range=None):
+def plane_operands(rng, shape, d, c, *, x_range=None, n_out=2):
     """Planes over the signed d-bit range (or ``x_range``, then in an
-    int16 container) and (P, 2, 3, 3) weights over the signed c-bit
-    range, extremes forced in."""
+    int16 container) and (P, 2, 3, 3) weights — (P, 3, 3) for one
+    output — over the signed c-bit range, extremes forced in."""
     x, _ = operands(rng, (*shape, 1), 1, d, c, x_range=x_range)
     wlo, whi = -(1 << (c - 1)), (1 << (c - 1)) - 1
-    w = rng.integers(wlo, whi + 1, (shape[0], 2, 3, 3))
+    wshape = (shape[0], 3, 3) if n_out == 1 else (shape[0], 2, 3, 3)
+    w = rng.integers(wlo, whi + 1, wshape)
     w.reshape(-1)[:2] = (wlo, whi)
     return (torch.from_numpy(x[..., 0].copy()),
             torch.from_numpy(w.astype(np_container(c))))
@@ -689,19 +699,23 @@ def test_plane_tile_model_equals_plain(name, d, c):
     boundary d + c = 12 / 13, of the int8 dot and of the containers),
     on planes of (16, 24), (17, 33) and (1, 1), with inputs over the
     signed d-bit range and over the whole int16 container."""
-    rng = np.random.default_rng(1000 * (name == "conv3_planes") + 20 * d + c)
+    rng = np.random.default_rng(PLANE_SEED[name] + 20 * d + c)
+    n_out = 1 if name == "conv2_planes" else 2
     for shape in PLANE_TILE_SHAPES:
         for x_range in (None, (-32768, 32767)):
-            x, w = plane_operands(rng, shape, d, c, x_range=x_range)
+            x, w = plane_operands(rng, shape, d, c, x_range=x_range,
+                                  n_out=n_out)
             want = PLANE_PLAIN[name](x, w, data_bits=d, coeff_bits=c)
             got = plane_tile_model(name, x, w, data_bits=d, coeff_bits=c)
             assert torch.equal(got, want), (shape, x_range)
 
 
 # (block, d, c): Conv3 packed (int8 and int16 inputs), Conv3 outside the
-# regime in int8 and int32 dots, Conv4 in both
+# regime in int8 and int32 dots, Conv4 in both, Conv2 in both and at the
+# widest widths
 APPLY_MODEL_POINTS = [("conv3", 6, 6), ("conv3", 9, 3), ("conv3", 8, 6),
-                      ("conv3", 16, 16), ("conv4", 8, 6), ("conv4", 9, 8)]
+                      ("conv3", 16, 16), ("conv4", 8, 6), ("conv4", 9, 8),
+                      ("conv2", 8, 6), ("conv2", 9, 8), ("conv2", 16, 16)]
 
 
 @pytest.mark.parametrize("block,d,c", APPLY_MODEL_POINTS)
@@ -710,7 +724,8 @@ def test_plane_tile_model_equals_reference_apply(block, d, c):
     model of the block's plane kernel equals the reference's
     ``ConvBlock.apply``, its Pallas kernel in interpret mode."""
     rng = np.random.default_rng(70 * d + c)
-    x, w = plane_operands(rng, (1, 32, 24), d, c)
+    x, w = plane_operands(rng, (1, 32, 24), d, c,
+                          n_out=1 if block == "conv2" else 2)
     want = np.asarray(ref_blocks.get_block(block).apply(
         jnp.asarray(x[0].numpy()), jnp.asarray(w[0].numpy()), data_bits=d,
         coeff_bits=c))
