@@ -66,7 +66,29 @@ order (any mismatch or error raises and the exit code is non-zero):
    plan on a few seeded images with seeded weights (K4 at P = 1, one
    launch per Conv2 plane, K3 and K5), equal to ``cnn_forward_ref`` on
    the CPU;
-8. the LM path (K7, K8): the conv1d and attention kernels against their
+8. the async gateway: both committed plans registered in one
+   ``AsyncCNNGateway`` (max_batch 16, on the card, golden weights)
+   sharing one ``ExecutableCache``, which must hold exactly the two
+   plans' distinct layers × 5 buckets (counted from the keys); the 8
+   golden images and 64 seeded samples of each plan interleaved through
+   ``await submit(..., plan_id=...)``, every output equal to
+   ``cnn_forward_ref`` on the CPU and the golden ones to the JAX golden,
+   with the counters set to 0 just before and read just after (each
+   plan's forwards launch SERVE_LAUNCHES per forward, never K1's or K2's
+   int32 entries); ``should_abort`` returning True at its second poll
+   raises ``DispatchAborted`` with exactly layer 0's launch counted; then
+   the launcher's ``run_cnn_async`` on each plan, 4,096 Poisson arrivals
+   at occupancy 0.8 and 2.0 with ``--max-pending 32`` and one run with
+   ``--deadline-ms 2 --wait-budget-ms 5``, each with ``served + shed +
+   expired == requests``, ``served > 0`` and ``failed == 0`` (a dispatch
+   that raises fails its futures, so a kernel that fails cannot pass
+   unseen), and the served outputs of every 16th request equal to
+   ``cnn_forward_ref`` on the CPU, printing the full-batch step (bare
+   forward and through the gateway), the offered load scheduled and
+   achieved, images/s, p50/p95/p99 from the scheduled arrival, service
+   rate, occupancy and each dispatch stage's p50/p99/max with the
+   card's name and power limit;
+9. the LM path (K7, K8): the conv1d and attention kernels against their
    plain versions on the card at the full-width shapes (K7 bit-exact at
    the launches of a Mamba-2-1.3B layer: 4096 and 128 channels, a
    prefill of (1, 512) without a state and a decode step of (4, 1) with
@@ -92,7 +114,7 @@ order (any mismatch or error raises and the exit code is non-zero):
    prefill at full width cut to 4 layers on the card (kernels) against
    the same parameters on the CPU (plain versions), relative L2 error of
    the logits under 5e-2;
-9. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
+10. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a result where ``torch.cuda.is_available()``
@@ -185,6 +207,18 @@ PINNED_PLAN_PINS = {0: "conv2", 1: "conv1", 2: "conv3"}
 # and weights
 PINNED_LOOP_IMAGES, PINNED_LOOP_SEED = 4, 18
 SERVED_FROM_OWN_PLAN = 16
+# the gateway phase: seeded sample inputs per plan beside the 8 golden
+# images, and the launcher's --async runs on each plan (4,096 Poisson
+# arrivals each, --max-pending 32)
+GATEWAY_SAMPLES, GATEWAY_SEED = 64, 19
+GATEWAY_REQUESTS, GATEWAY_MAX_PENDING = 4096, 32
+# of each --async run, the served outputs of every 16th request are held
+# against cnn_forward_ref on the CPU (up to 256 per run)
+GATEWAY_KEEP_EVERY = 16
+GATEWAY_RUNS = (("occupancy 0.8", ("--occupancy", "0.8")),
+                ("occupancy 2.0", ("--occupancy", "2.0")),
+                ("deadline 2 ms", ("--occupancy", "2.0", "--deadline-ms",
+                                   "2", "--wait-budget-ms", "5")))
 
 LM_GOLDEN = ROOT / "src" / "repro_torch" / "golden" / "lm_reference.npz"
 LM_ARCHS = ("llama3.2-3b", "mamba2-1.3b")
@@ -999,6 +1033,283 @@ def pinned_loop(entries, plan):
     return res
 
 
+def _check_serve_launches(label, forwards):
+    """Each plan's forwards (``{stem: n}``) launched their entries
+    SERVE_LAUNCHES times per forward, and nothing else."""
+    got = LAUNCHES[label]
+    for k, v in got.items():
+        want = sum(SERVE_LAUNCHES[stem].get(k, 0) * n
+                   for stem, n in forwards.items())
+        if v != want:
+            raise AssertionError(
+                f"{label}: {k} launched {v} times in {forwards} forwards, "
+                f"want {want}")
+
+
+def forward_in_threads(model, xb, reps=10):
+    """Median ms of one full-batch forward with its copy to the host,
+    run in this thread, in a worker thread while this one waits, and in
+    a worker thread while this one runs Python, as the gateway's event
+    loop does under load: what sharing the interpreter costs the
+    gateway's ``forward`` stage."""
+    import statistics
+    from concurrent.futures import ThreadPoolExecutor
+
+    def once():
+        t0 = time.perf_counter()
+        model(xb).cpu()
+        return time.perf_counter() - t0
+
+    def spun(ex):
+        fut = ex.submit(once)
+        while not fut.done():
+            pass
+        return fut.result()
+
+    with ThreadPoolExecutor(1) as ex:
+        ex.submit(once).result()
+        runs = {"main": lambda: once(),
+                "worker_main_waits": lambda: ex.submit(once).result(),
+                "worker_main_spins": lambda: spun(ex)}
+        return {k: statistics.median(f() for _ in range(reps)) * 1e3
+                for k, f in runs.items()}
+
+
+class GCTimes:
+    """Collections of the cyclic garbage collector while the context is
+    open: per generation, how many and their longest and total ms (a
+    collection holds the interpreter, so it stalls both of the
+    gateway's threads)."""
+
+    def __enter__(self):
+        import gc
+        self.log, self._t0 = [], 0.0
+        gc.callbacks.append(self._on_gc)
+        return self
+
+    def _on_gc(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.log.append((info["generation"],
+                             (time.perf_counter() - self._t0) * 1e3))
+
+    def __exit__(self, *exc):
+        import gc
+        gc.callbacks.remove(self._on_gc)
+
+    def summary(self):
+        out = {}
+        for gen, ms in self.log:
+            g = out.setdefault(gen, {"n": 0, "max_ms": 0.0, "total_ms": 0.0})
+            g["n"] += 1
+            g["max_ms"] = max(g["max_ms"], ms)
+            g["total_ms"] += ms
+        return out
+
+
+def gateway_on_card(entries, smi):
+    """Phase 8: the async gateway on the card.  Both committed plans in
+    one ``AsyncCNNGateway`` sharing one ``ExecutableCache``, golden
+    weights; the golden images and seeded samples of both plans,
+    interleaved through ``submit``; an abort after layer 0; then the
+    launcher's ``run_cnn_async`` on each plan.  Returns the numbers for
+    the JSON line."""
+    import asyncio
+    import numpy as np
+    import torch
+    from repro_torch.core import deploy
+    from repro_torch.core.cnn import cnn_forward_ref
+    from repro_torch.launch import serve
+    from repro_torch.runtime import (DispatchAborted, ExecutableCache,
+                                     load_plan)
+    from repro_torch.runtime.compiled import dtype_name
+    from repro_torch.serve import AsyncCNNGateway, AsyncServeConfig
+
+    stems = (UNPINNED, PINNED)
+    cache = ExecutableCache()
+    gw = AsyncCNNGateway(AsyncServeConfig(max_batch=MAX_BATCH),
+                         exec_cache=cache)
+    for stem in stems:
+        path = PLANS / f"{stem}.json"
+        plan = load_plan(path)
+        gw.register_plan(plan, plan_id=stem, device="cuda",
+                         params=serve.load_params(
+                             GOLDEN, path, deploy.plan_config(plan), "cuda"))
+    compiled = {stem: gw.plans[stem].compiled for stem in stems}
+    layer_keys = {stem: {c._layer_key(i, MAX_BATCH)[:-1]
+                         for i in range(c.num_layers)}
+                  for stem, c in compiled.items()}
+    distinct = set().union(*layer_keys.values())
+    buckets = compiled[UNPINNED].buckets
+    if len(cache) != len(distinct) * len(buckets):
+        raise AssertionError(
+            f"gateway: the shared cache holds {len(cache)} prepared "
+            f"launches, want {len(distinct)} distinct layers x "
+            f"{len(buckets)} buckets")
+    shared = set.intersection(*layer_keys.values())
+    print(f"[gateway] one ExecutableCache for both plans: {len(cache)} "
+          f"prepared launches = {len(distinct)} distinct layers x "
+          f"{len(buckets)} buckets; {len(shared)} layer(s) prepared once "
+          f"for both plans: {sorted(k[:6] for k in shared)}")
+
+    with np.load(GOLDEN) as golden:
+        gx = {stem: golden[f"{stem}.x"] for stem in stems}
+        gy = {stem: golden[f"{stem}.y"] for stem in stems}
+    xs = {stem: list(gx[stem]) + compiled[stem].sample_inputs(
+        GATEWAY_SAMPLES, GATEWAY_SEED) for stem in stems}
+    order = [(stem, k) for k in range(len(xs[UNPINNED])) for stem in stems]
+
+    async def interleaved():
+        async with gw:
+            futs = [await gw.submit(xs[stem][k], plan_id=stem)
+                    for stem, k in order]
+            return await asyncio.gather(*futs)
+
+    def run():
+        t0 = time.perf_counter()
+        outs = asyncio.run(interleaved())
+        return outs, time.perf_counter() - t0
+    label = "gateway both plans"
+    want = set().union(*(SERVE_LAUNCHES[stem] for stem in stems))
+    outs, dt = drive(entries, label, want, run)
+    forwards = {stem: sum(c.bucket_hits.values())
+                for stem, c in compiled.items()}
+    _check_serve_launches(label, forwards)
+    for stem in stems:
+        ys = np.stack([o for (st, _), o in zip(order, outs) if st == stem])
+        if not np.array_equal(ys[:len(gx[stem])], gy[stem]):
+            raise AssertionError(f"gateway {stem}: outputs differ from the "
+                                 f"JAX reference's golden")
+        c = compiled[stem]
+        y_ref = cnn_forward_ref([w.cpu() for w in c.params],
+                                torch.from_numpy(np.stack(xs[stem])),
+                                c.cfg).numpy()
+        if not np.array_equal(ys, y_ref):
+            raise AssertionError(f"gateway {stem}: outputs differ from "
+                                 f"cnn_forward_ref on the CPU")
+    stats = gw.stats()
+    if stats["failed"] or stats["served"] != len(order):
+        raise AssertionError(f"gateway: {stats['served']} of {len(order)} "
+                             f"served, {stats['failed']} failed")
+    print(f"[gateway] {len(order)} requests interleaved over both plans "
+          f"through submit in {dt:.3f} s: every output equals "
+          f"cnn_forward_ref (CPU), the golden images' the JAX golden; "
+          f"forwards {forwards}, occupancy {stats['occupancy_hist']}")
+
+    # abort on the card: the callback says stop at its second poll, so
+    # only layer 0 (conv4 d8c6 1->8 on both plans: K1's requantizing
+    # entry) was launched
+    model = compiled[PINNED]
+    if model.blocks[0].name != "conv4":
+        raise AssertionError(f"{PINNED}: layer 0 is {model.blocks[0].name}")
+    polls = []
+
+    def abort():
+        polls.append(1)
+        return len(polls) >= 2
+
+    def run_abort():
+        try:
+            model(gx[PINNED], should_abort=abort)
+        except DispatchAborted:
+            torch.cuda.synchronize()
+            return True
+        return False
+    label = "gateway abort"
+    if not drive(entries, label, {"fused_dot_layer_requant"}, run_abort):
+        raise AssertionError("gateway abort: no DispatchAborted")
+    launched = {k: v for k, v in LAUNCHES[label].items() if v}
+    if launched != {"fused_dot_layer_requant": 1}:
+        raise AssertionError(f"gateway abort: launched {launched}, want "
+                             f"layer 0's one launch")
+    print(f"[gateway] abort at the second poll: DispatchAborted after "
+          f"{launched}")
+
+    # the forward stage in and out of a worker thread, at bucket 16
+    threads = {}
+    for stem in stems:
+        np_dtype = np.dtype(dtype_name(compiled[stem].in_dtype))
+        xb = torch.from_numpy(np.stack([np.asarray(x, np_dtype)
+                                        for x in xs[stem][:MAX_BATCH]]))
+        threads[stem] = forward_in_threads(compiled[stem], xb)
+        print(f"[gateway] {stem} full-batch forward + copy to the host, "
+              f"median ms: " + ", ".join(f"{k} {v:.6f}"
+                                         for k, v in threads[stem].items())
+              + f" on {smi}")
+    import gc
+    print(f"[gateway] {len(gc.get_objects())} objects tracked by the "
+          f"garbage collector before the --async runs")
+
+    runs = {}
+    for stem in stems:
+        for name, flags in GATEWAY_RUNS:
+            args = serve.parse_args([
+                "--workload", "cnn", "--async", "--plan",
+                str(PLANS / f"{stem}.json"), "--params", str(GOLDEN),
+                "--requests", str(GATEWAY_REQUESTS), "--max-batch",
+                str(MAX_BATCH), "--max-pending", str(GATEWAY_MAX_PENDING),
+                *flags, "--torch-device", "cuda"])
+            label = f"gateway run_cnn_async {stem} {name}"
+            with GCTimes() as gct:
+                g, res = drive(entries, label, set(SERVE_LAUNCHES[stem]),
+                               lambda: serve.run_cnn_async(
+                                   args, keep_every=GATEWAY_KEEP_EVERY))
+            res["gc"] = gct.summary()
+            c = g.plans["plan0"].compiled
+            _check_serve_launches(label, {stem: sum(
+                c.bucket_hits.values())})
+            total = res["served"] + res["shed"] + res["expired"]
+            if total != GATEWAY_REQUESTS or res["served"] < 1 \
+                    or res["failed"]:
+                raise AssertionError(f"{label}: {res}")
+            # served outputs of full, partial and padded batches alike
+            kept = res.pop("outputs")
+            if not kept:
+                raise AssertionError(f"{label}: no served output kept")
+            y_ref = cnn_forward_ref(
+                [w.cpu() for w in c.params],
+                torch.from_numpy(np.stack([x for _, x, _ in kept])),
+                c.cfg).numpy()
+            if not np.array_equal(np.stack([y for _, _, y in kept]), y_ref):
+                bad = [i for (i, _, y), r in zip(kept, y_ref)
+                       if not np.array_equal(y, r)]
+                raise AssertionError(f"{label}: served outputs of requests "
+                                     f"{bad[:8]} differ from "
+                                     f"cnn_forward_ref on the CPU")
+            res["outputs_checked"] = len(kept)
+            gstep = res.get("gateway_step_ms")
+            print(f"[gateway] {label}: full-batch step "
+                  f"{res['step_ms']:.6f} ms (bare forward), "
+                  f"{gstep} ms through the gateway; offered "
+                  f"{res['offered_per_s']:.1f} images/s scheduled, "
+                  f"{res['achieved_offered_per_s']:.1f} achieved (producer "
+                  f"lag p50 {res['producer_lag_p50_ms']:.6f} ms, max "
+                  f"{res['producer_lag_max_ms']:.6f} ms; admission "
+                  f"{res['admission_us']:.3f} us per request); served "
+                  f"{res['images_per_s']:.1f} images/s ({res['served']} "
+                  f"served, {res['shed']} shed, {res['expired']} expired), "
+                  f"p50/p95/p99 {res.get('p50_ms')}/{res.get('p95_ms')}/"
+                  f"{res.get('p99_ms')} ms from the scheduled arrival, "
+                  f"service rate {res['service_rate']:.1f} images/s, "
+                  f"occupancy {res['occupancy_hist']}, pending bound "
+                  f"{res['max_pending']}; {len(kept)} served outputs equal "
+                  f"cnn_forward_ref (CPU); on {smi}")
+            print(f"[gateway]   {res['dispatches']} dispatches, stage ms "
+                  f"p50/p99/max: " + ", ".join(
+                      f"{k} {v['p50']:.6f}/{v['p99']:.6f}/{v['max']:.6f}"
+                      for k, v in res["stages_ms"].items())
+                  + f"; worker busy {res['worker_busy'] * 100:.2f} % of "
+                  f"the wall; first dispatch {res['first_dispatch']}; "
+                  f"slowest {res['slowest_dispatch']}; garbage "
+                  f"collections {res['gc']}")
+            runs[label] = res
+    return {"cache_entries": len(cache), "distinct_layers": len(distinct),
+            "shared_layers": len(shared), "forwards": forwards,
+            "interleaved_seconds": dt, "forward_in_threads_ms": threads,
+            "runs": runs}
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
@@ -1017,7 +1328,7 @@ def _lm_bound(nbytes, flops, rate):
 
 
 def check_lm_kernels(entries):
-    """Phase 8, kernels: K7 and K8 against their plain versions on the
+    """Phase 9, kernels: K7 and K8 against their plain versions on the
     card at the full-width shapes, timed, into their ``entries``."""
     import numpy as np
     import torch
@@ -1168,7 +1479,7 @@ def _lm_golden_params(z, arch, cfg, device):
 
 
 def lm_golden(entries):
-    """Phase 8, golden: both smoke archs at float32 on the card against
+    """Phase 9, golden: both smoke archs at float32 on the card against
     the JAX reference's committed outputs."""
     import numpy as np
     import torch
@@ -1264,7 +1575,7 @@ def lm_decode_profile(model, params, prompts):
 
 
 def lm_full_width(entries):
-    """Phase 8, full width: the launcher's ``serve_lm`` for both archs at
+    """Phase 9, full width: the launcher's ``serve_lm`` for both archs at
     full width and depth, bf16.  Returns the numbers per arch."""
     import torch
     from repro_torch.configs import get_config
@@ -1352,7 +1663,7 @@ def _leaves(tree):
 
 
 def lm_plain_vs_kernel(entries):
-    """Phase 8, one prefill at full width cut to LM_CUT_LAYERS layers: the
+    """Phase 9, one prefill at full width cut to LM_CUT_LAYERS layers: the
     card (kernels) against the same parameters on the CPU (plain
     versions), bf16."""
     import numpy as np
@@ -1445,6 +1756,7 @@ def main() -> int:
                 for stem in (PINNED, UNPINNED)}
         per_plane_forwards(entries)
         planned = plan_on_card(entries)
+        gateway = gateway_on_card(entries, smi)
         check_lm_kernels(entries)
         lm_golden(entries)
         lm = lm_full_width(entries)
@@ -1459,6 +1771,7 @@ def main() -> int:
                             for e in entries.values()],
                 "images_per_s": rates, "ms_per_step": step_ms,
                 "serve_profile": prof, "plan_on_card": planned,
+                "gateway": gateway,
                 "lm_k7_per_mamba_layer": entries["causal_conv1d"]["per_layer"],
                 "lm_full_width": lm, "lm_cut_plain_vs_kernel": lm_cut,
                 "int32_ops_per_s": int32_rate(), "card": smi}

@@ -13,6 +13,7 @@ this file imports no JAX, so it also runs where JAX is not installed:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
 
+import asyncio
 from pathlib import Path
 
 import numpy as np
@@ -26,8 +27,9 @@ from repro_torch.configs.paper_conv import REDUCED_SWEEP
 from repro_torch.configs import smoke_config
 from repro_torch.kernels import conv1d, conv2d, flash_attention as fa
 from repro_torch.models import build_model
-from repro_torch.serve import (CNNEngine, CNNServeConfig, Engine,
-                               ImageRequest, Request, ServeConfig)
+from repro_torch.serve import (AsyncCNNGateway, AsyncServeConfig, CNNEngine,
+                               CNNServeConfig, Engine, ImageRequest, Request,
+                               ServeConfig)
 from torch_parity import cuda, operands  # noqa: F401 (fixture)
 
 pytestmark = pytest.mark.cuda
@@ -319,6 +321,32 @@ def test_slice_on_card_matches_golden_through_all_kernels(cuda):
     engine.run(reqs)
     assert np.array_equal(np.stack([r.image for r in reqs]), gx)
     assert np.array_equal(np.stack([r.output for r in reqs]), gy)
+    assert [fn.launches - b for fn, b in zip(counters, before)] \
+        == [1, 1, 1, 0, 0]
+
+
+def test_gateway_on_card_matches_golden(cuda):
+    """The async gateway on the card, its dispatches in its worker
+    thread: the pinned plan's golden images equal the golden outputs,
+    with K1–K3 launched through their requantizing entries once per
+    forward and never through the int32 ones."""
+    engine, gx, gy = golden_engine(cuda, 8)
+    gw = AsyncCNNGateway(AsyncServeConfig(max_batch=8))
+    gw.register_plan(None, compiled=engine.compiled)
+    counters = [conv2d.conv1_layer, base.fused_dot_layer_requant,
+                base.packed_dot_layer_requant, base.fused_dot_layer,
+                base.packed_dot_layer]
+    before = [fn.launches for fn in counters]
+
+    async def main():
+        async with gw:
+            futs = [gw.submit_nowait(x) for x in gx]
+            return await asyncio.gather(*futs)
+
+    outs = asyncio.run(main())
+    assert np.array_equal(np.stack(outs), gy)
+    forwards = sum(engine.compiled.bucket_hits.values())
+    assert forwards == 1 and gw.stats()["served"] == len(gx)
     assert [fn.launches - b for fn, b in zip(counters, before)] \
         == [1, 1, 1, 0, 0]
 

@@ -75,6 +75,9 @@ SLICE_MODULES = (
     "repro_torch.kernels.conv1d", "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.ops", "repro_torch.kernels.ref",
     "repro_torch.serve.engine", "repro_torch.convert",
+    # slice 8: the async gateway and the ops modules it reports into
+    "repro_torch.serve.async_engine", "repro_torch.ops.tracker",
+    "repro_torch.ops.store",
 )
 
 
