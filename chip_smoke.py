@@ -88,7 +88,35 @@ order (any mismatch or error raises and the exit code is non-zero):
    achieved, images/s, p50/p95/p99 from the scheduled arrival, service
    rate, occupancy and each dispatch stage's p50/p99/max with the
    card's name and power limit;
-9. the LM path (K7, K8): the conv1d and attention kernels against their
+9. the fleet and recovery: the launcher's ``run_cnn_fleet`` (``edge0``,
+   ``v5e0``, ``v5p0``, each on the plan the port's planner makes for its
+   profile, max_batch 16, ``--max-pending 32``, one fresh ``--cache-dir``
+   shared by the three gateways and the four runs) on 4,096 tiered
+   Poisson arrivals (``--seed 1``) at occupancy 1.0 of one bare
+   full-batch forward, under each router and once more under
+   ``plan_aware`` with ``--drain``; each run with ``served + expired +
+   shed == requests``, nothing failed, refused or lost, one drain where
+   asked, every layer of every forward launching its entry once (the
+   counters set to 0 just before and read just after), and the served
+   outputs of every 16th request equal to ``cnn_forward_ref`` on the CPU
+   with the plan and weights of the worker that served it; then
+   recovery: a fresh ``StoreRoot`` holding the pinned plan under
+   ``cnn`` (K1, K2 and K3), workers ``a`` and ``b`` from
+   ``respawn_gateway`` (cold build seconds and ``nvcc`` runs), a seeded
+   fault plan that crashes ``a`` at its first dispatch, 256 requests,
+   ``Fleet.kill`` then ``Fleet.respawn`` from the store: ``completed +
+   refused == requests``, nothing lost, some re-routed, every completion
+   equal to ``cnn_forward_ref``, the respawned gateway's cache with 0
+   preparations and layers × buckets disk hits, ``a`` re-admitted by the
+   health probe; then a fresh process on the same root (``python3
+   chip_smoke.py --warm-start``: ``LeaseHeld`` for ``b``, no ``nvcc`` run,
+   nothing prepared, every library bound from the root's
+   ``exec-cache/kernels/``, outputs equal to the parent's), every cache
+   entry corrupted (each quarantined as ``*.corrupt`` and re-prepared),
+   one library replaced by garbage (quarantined and rebuilt in a fresh
+   process, never loaded) and a torn plan write (the live plan loads,
+   listings skip the temp file);
+10. the LM path (K7, K8): the conv1d and attention kernels against their
    plain versions on the card at the full-width shapes (K7 bit-exact at
    the launches of a Mamba-2-1.3B layer: 4096 and 128 channels, a
    prefill of (1, 512) without a state and a decode step of (4, 1) with
@@ -114,8 +142,9 @@ order (any mismatch or error raises and the exit code is non-zero):
    prefill at full width cut to 4 layers on the card (kernels) against
    the same parameters on the CPU (plain versions), relative L2 error of
    the logits under 5e-2;
-10. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
-   ``{"ok": true, "device": {...}}``.
+11. one JSON line ``{"kernels": [...]}`` (with the fleet and recovery
+   results under ``"fleet"`` and ``"recovery"``), the nvidia-smi line,
+   and last ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a result where ``torch.cuda.is_available()``
 is false, or where the port's sources are not beside it.
@@ -127,6 +156,7 @@ import functools
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -219,6 +249,22 @@ GATEWAY_RUNS = (("occupancy 0.8", ("--occupancy", "0.8")),
                 ("occupancy 2.0", ("--occupancy", "2.0")),
                 ("deadline 2 ms", ("--occupancy", "2.0", "--deadline-ms",
                                    "2", "--wait-budget-ms", "5")))
+# the fleet phase: the launcher's --fleet (edge0, v5e0, v5p0 on their own
+# plans, one fresh --cache-dir shared by the three gateways and the four
+# runs) under each router and once more with --drain; 4,096 tiered
+# Poisson arrivals (--seed 1) at occupancy 1.0, --max-pending 32; the
+# served outputs of every 16th request held against cnn_forward_ref on
+# the CPU with the serving worker's plan and weights
+FLEET_REQUESTS, FLEET_SEED, FLEET_KEEP_EVERY = 4096, 1, 16
+FLEET_RUNS = (("plan_aware", ()), ("least_loaded", ()),
+              ("round_robin", ()), ("plan_aware", ("--drain",)))
+# the recovery phase: workers a and b from respawn_gateway over a fresh
+# StoreRoot holding the pinned plan under plan id "cnn"; a seeded fault
+# plan crashes a at its first dispatch; 256 requests; then a warm start
+# in a fresh process (worker c) on 16 seeded images
+RECOVERY_REQUESTS, RECOVERY_FAULT_SEED, RECOVERY_MAX_PENDING = 256, 42, 64
+WARM_IMAGES, WARM_SEED = 16, 23
+RECOVERY_PLAN_ID = "cnn"
 
 LM_GOLDEN = ROOT / "src" / "repro_torch" / "golden" / "lm_reference.npz"
 LM_ARCHS = ("llama3.2-3b", "mamba2-1.3b")
@@ -1310,6 +1356,387 @@ def gateway_on_card(entries, smi):
             "runs": runs}
 
 
+def _fleet_forwards(fleet):
+    """Served forwards (bucket dispatches) per worker of a closed
+    fleet."""
+    return {wid: sum(w.gateway.plans["cnn"].compiled.bucket_hits.values())
+            for wid, w in fleet.workers.items()}
+
+
+def fleet_on_card(entries, smi, cache_dir):
+    """Phase 9a: the launcher's ``run_cnn_fleet`` on the card, under
+    each router and once more with ``--drain``, all four runs through
+    one fresh ``--cache-dir``.  Returns the numbers for the JSON
+    line."""
+    import numpy as np
+    import torch
+    from repro_torch.core.cnn import cnn_forward_ref
+    from repro_torch.launch import serve
+
+    runs = {}
+    for router, flags in FLEET_RUNS:
+        label = f"fleet {router}" + ("".join(f" {f[2:]}" for f in flags))
+        args = serve.parse_args([
+            "--workload", "cnn", "--fleet", "--requests",
+            str(FLEET_REQUESTS), "--max-batch", str(MAX_BATCH),
+            "--max-pending", str(GATEWAY_MAX_PENDING), "--occupancy", "1.0",
+            "--seed", str(FLEET_SEED), "--router", router, *flags,
+            "--cache-dir", str(cache_dir), "--torch-device", "cuda"])
+        plans = serve.fleet_plans(args)
+        per_plan = {f"{name}0": serve.plan_kernel_entries(plan)
+                    for name, plan in plans.items()}
+        want = set().union(*map(set, per_plan.values()))
+        fleet, res = drive(entries, label, want, lambda: serve.run_cnn_fleet(
+            args, keep_every=FLEET_KEEP_EVERY))
+        forwards = _fleet_forwards(fleet)
+        for k, v in LAUNCHES[label].items():
+            exp = sum(forwards[wid] * layers.count(k)
+                      for wid, layers in per_plan.items())
+            if v != exp:
+                raise AssertionError(f"{label}: {k} launched {v} times in "
+                                     f"{forwards} forwards, want {exp}")
+        kept = res.pop("outputs")
+        if res["served"] + res["expired"] + res["shed"] != FLEET_REQUESTS \
+                or res["failed"] or res["lost"] or res["refused"] \
+                or res["served"] < 1:
+            raise AssertionError(f"{label}: {res}")
+        if "--drain" in flags and res["drains"] != 1:
+            raise AssertionError(f"{label}: drains {res['drains']}")
+        if not kept:
+            raise AssertionError(f"{label}: no served output kept")
+        by_worker = {}
+        for i, wid, x, y in kept:
+            by_worker.setdefault(wid, []).append((i, x, y))
+        for wid, items in by_worker.items():
+            c = fleet.workers[wid].gateway.plans["cnn"].compiled
+            y_ref = cnn_forward_ref(
+                [w.cpu() for w in c.params],
+                torch.from_numpy(np.stack([x for _, x, _ in items])),
+                c.cfg).numpy()
+            if not np.array_equal(np.stack([y for _, _, y in items]), y_ref):
+                raise AssertionError(
+                    f"{label}: outputs {wid} served differ from "
+                    f"cnn_forward_ref on the CPU with its plan and weights")
+        res["outputs_checked"] = {wid: len(v) for wid, v in by_worker.items()}
+        res["forwards"] = forwards
+        print(f"[fleet] {label}: {res['served']} served, {res['expired']} "
+              f"expired, {res['shed']} shed of {FLEET_REQUESTS} in "
+              f"{res['wall_s']:.6f} s ({res['images_per_s']:.1f} images/s; "
+              f"offered {res['offered_per_s']:.1f} scheduled, "
+              f"{res['achieved_offered_per_s']:.1f} achieved; bare step "
+              f"{res['step_ms']:.6f} ms); rerouted {res['rerouted']}, "
+              f"retried {res['retried']}, drains {res['drains']}; per tier "
+              f"{res['per_tier']}; per worker {res['per_worker']}; cache "
+              f"{res['cache']}; plans launch {res['plans']}; served outputs "
+              f"{res['outputs_checked']} equal cnn_forward_ref (CPU); "
+              f"on {smi}")
+        runs[label] = res
+    return runs
+
+
+def _recovery_config():
+    from repro_torch.serve import AsyncServeConfig
+    return AsyncServeConfig(max_batch=MAX_BATCH,
+                            max_pending=RECOVERY_MAX_PENDING)
+
+
+def _serve_images(gw, imgs):
+    import asyncio
+
+    async def main():
+        async with gw:
+            futs = [await gw.submit(x) for x in imgs]
+            return await asyncio.gather(*futs)
+    return asyncio.run(main())
+
+
+def warm_start(root_dir, worker_id, out, rebuilt=None):
+    """The recovery phase's fresh process: open the store root the
+    parent holds, check that the parent's lease on ``b`` holds, build a
+    gateway for ``worker_id`` from the root and serve the seeded
+    images; write its outputs and numbers to ``out`` (npz) and check
+    that it prepared nothing, ran no ``nvcc`` (or, with ``rebuilt``,
+    exactly one, for that quarantined library) and bound every kernel
+    library from the root's ``exec-cache/kernels/``."""
+    import numpy as np
+    from repro_torch.chaos import respawn_gateway
+    from repro_torch.kernels import build
+    from repro_torch.ops import LeaseHeld, StoreRoot
+
+    root = StoreRoot(root_dir)
+    try:
+        root.acquire_lease("b")
+        raise AssertionError("warm start: the parent's lease on b was "
+                             "taken over")
+    except LeaseHeld:
+        pass
+    t0 = time.perf_counter()
+    gw = respawn_gateway(root, worker_id, [RECOVERY_PLAN_ID],
+                         _recovery_config(), device="cuda")
+    build_s = time.perf_counter() - t0
+    stats = gw.exec_cache.stats()
+    bound = build.bound_paths()
+    kdir = (root.exec_cache_dir / "kernels").resolve()
+    compiled = gw.plans[RECOVERY_PLAN_ID].compiled
+    layers = compiled.num_layers * len(compiled.buckets)
+    want_nvcc = 0 if rebuilt is None else 1
+    problems = []
+    if build.nvcc_runs != want_nvcc:
+        problems.append(f"nvcc_runs {build.nvcc_runs}, want {want_nvcc}")
+    if stats["compiles"] != 0 or stats["disk_hits"] != layers:
+        problems.append(f"cache {stats}, want 0 compiles and {layers} "
+                        f"disk hits")
+    if set(bound) != {"conv1_layer", "fused_dot_layer", "packed_dot_layer"} \
+            or any(p.resolve().parent != kdir for p in bound.values()):
+        problems.append(f"libraries bound from {bound}, want {kdir}")
+    for name in bound:
+        if not build.verified(name, kdir):
+            problems.append(f"{name}: bound library fails its hash")
+    if rebuilt is not None:
+        lib = build.library_path(rebuilt, kdir)
+        if not lib.with_name(lib.name + ".corrupt").exists():
+            problems.append(f"{rebuilt}: no quarantined *.corrupt library")
+    imgs = compiled.sample_inputs(WARM_IMAGES, WARM_SEED)
+    outs = np.stack(_serve_images(gw, imgs))
+    gw.lease.release()
+    np.savez(out, outputs=outs, build_s=build_s,
+             nvcc_runs=build.nvcc_runs, compiles=stats["compiles"],
+             disk_hits=stats["disk_hits"],
+             bound=json.dumps({k: str(v) for k, v in bound.items()}))
+    if problems:
+        raise AssertionError(f"warm start {worker_id}: {problems}")
+    return 0
+
+
+def _warm_start_process(root_dir, worker_id, out, rebuilt=None):
+    """Run ``warm_start`` in a fresh process; return its npz."""
+    import numpy as np
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--warm-start",
+           str(root_dir), worker_id, str(out)]
+    if rebuilt is not None:
+        cmd += ["--rebuilt", rebuilt]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"warm start {worker_id} exited "
+                             f"{proc.returncode}:\n{proc.stdout[-4000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    with np.load(out) as z:
+        return {k: z[k] for k in z.files}
+
+
+def recovery_on_card(entries, smi, root_dir):
+    """Phase 9b: kill and restart-from-store on the card.  Workers a and
+    b from ``respawn_gateway`` over a fresh ``StoreRoot`` (the pinned
+    plan: K1, K2 and K3), a seeded fault plan that crashes a at its
+    first dispatch, 256 requests, ``Fleet.kill`` then ``Fleet.respawn``
+    from the store; then a warm start in a fresh process, a corrupted
+    cache, a corrupted kernel library and a torn plan write.  Returns
+    the numbers for the JSON line."""
+    import asyncio
+    import numpy as np
+    import torch
+    from repro_torch.chaos import (FaultInjector, FaultPlan, FaultSpec,
+                                   corrupt_cache_entries, respawn_gateway,
+                                   tear_plan_write)
+    from repro_torch.core.cnn import cnn_forward_ref
+    from repro_torch.fleet import (Fleet, FleetError, FleetWorker,
+                                   HealthPolicy)
+    from repro_torch.kernels import build
+    from repro_torch.ops import StoreRoot
+    from repro_torch.runtime import load_plan
+
+    root = StoreRoot(root_dir)
+    plan = load_plan(PLANS / f"{PINNED}.json")
+    root.plans.save(plan, RECOVERY_PLAN_ID)
+    faults = FaultPlan((FaultSpec("crash_dispatch", "a", after_n=1),),
+                       seed=RECOVERY_FAULT_SEED)
+    inj = FaultInjector(FaultPlan.from_json(faults.to_json()))
+    nvcc0 = build.nvcc_runs
+    t0 = time.perf_counter()
+    gw_a = respawn_gateway(root, "a", [RECOVERY_PLAN_ID], _recovery_config(),
+                           faults=inj.for_target("a"), device="cuda")
+    gw_b = respawn_gateway(root, "b", [RECOVERY_PLAN_ID], _recovery_config(),
+                           device="cuda")
+    cold_s = time.perf_counter() - t0
+    cold_nvcc = build.nvcc_runs - nvcc0
+    compiled = gw_b.plans[RECOVERY_PLAN_ID].compiled
+    layers = compiled.num_layers * len(compiled.buckets)
+    if gw_a.exec_cache.stats()["compiles"] != layers \
+            or gw_b.exec_cache.stats()["disk_hits"] != layers:
+        raise AssertionError(f"recovery: cold root {gw_a.exec_cache.stats()}"
+                             f", then {gw_b.exec_cache.stats()}")
+    print(f"[recovery] cold root: workers a and b built in {cold_s:.6f} s, "
+          f"{cold_nvcc} nvcc runs into {root.exec_cache_dir / 'kernels'}; a "
+          f"prepared {layers} launches, b loaded {layers} from disk")
+
+    imgs = compiled.sample_inputs(RECOVERY_REQUESTS, GATEWAY_SEED)
+
+    def spawn_a():
+        inj.revive("a")                          # the restart
+        return respawn_gateway(root, "a", [RECOVERY_PLAN_ID],
+                               _recovery_config(), device="cuda")
+
+    workers = [FleetWorker("a", gw_a, "v5e", spawn=spawn_a,
+                           health=HealthPolicy(eject_after=1,
+                                               probe_interval=0.05)),
+               FleetWorker("b", gw_b, "v5e")]
+
+    async def main():
+        fleet = Fleet(workers, router="round_robin")
+        async with fleet:
+            futs, refused = [], 0
+            for i, img in enumerate(imgs):
+                try:
+                    futs.append((i, fleet.submit_nowait(img)))
+                except FleetError:
+                    refused += 1
+                if i % 8 == 7:                   # let dispatches (and
+                    await asyncio.sleep(0.002)   # the crash) happen
+            outs = await asyncio.gather(*(f for _, f in futs),
+                                        return_exceptions=True)
+            dead = fleet.workers["a"].dead
+            t_respawn = time.perf_counter()
+            respawned = await fleet.respawn("a")  # via the spawn factory
+            respawn_s = time.perf_counter() - t_respawn
+            canaries = 0
+            while not respawned.health.healthy and canaries < 8:
+                await fleet.infer(imgs[canaries])
+                canaries += 1
+            return (futs, outs, refused, dead, respawn_s, canaries,
+                    fleet.stats(), fleet)
+
+    label = "recovery kill respawn"
+    futs, outs, refused, dead, respawn_s, canaries, stats, fleet = drive(
+        entries, label, set(SERVE_LAUNCHES[PINNED]),
+        lambda: asyncio.run(main()))
+    gw_a2 = fleet.workers["a"].gateway
+    forwards = sum(gw.plans[RECOVERY_PLAN_ID].compiled.bucket_hits
+                   [b] for gw in (gw_a, gw_b, gw_a2)
+                   for b in compiled.buckets)
+    _check_serve_launches(label, {PINNED: forwards})
+    failed = [o for o in outs if isinstance(o, BaseException)]
+    completed = len(outs) - len(failed)
+    lost = len(failed)
+    respawn_cache = gw_a2.exec_cache.stats()
+    if completed + refused != RECOVERY_REQUESTS or lost \
+            or stats["rerouted"] < 1 or not dead or stats["kills"] != 1:
+        raise AssertionError(f"{label}: {completed} completed + {refused} "
+                             f"refused of {RECOVERY_REQUESTS}, {lost} lost "
+                             f"({failed[:3]}), dead {dead}, {stats}")
+    if inj.injected[0][:2] != ("crash_dispatch", "a") or len(inj.injected) != 1:
+        raise AssertionError(f"{label}: injected {inj.injected}")
+    if respawn_cache["compiles"] != 0 or respawn_cache["disk_hits"] != layers:
+        raise AssertionError(f"{label}: the respawned gateway's cache "
+                             f"{respawn_cache}, want 0 compiles and "
+                             f"{layers} disk hits")
+    if not fleet.workers["a"].health.healthy:
+        raise AssertionError(f"{label}: a not re-admitted after {canaries} "
+                             f"canaries")
+    for gw in (gw_a, gw_a2):
+        for w0, w1 in zip(gw.plans[RECOVERY_PLAN_ID].compiled.params,
+                          compiled.params):
+            if not torch.equal(w0, w1):
+                raise AssertionError(f"{label}: workers' weights differ")
+    xs = np.stack([imgs[i] for i, _ in futs])
+    y_ref = cnn_forward_ref([w.cpu() for w in compiled.params],
+                            torch.from_numpy(xs), compiled.cfg).numpy()
+    if not np.array_equal(np.stack(outs), y_ref):
+        raise AssertionError(f"{label}: completions differ from "
+                             f"cnn_forward_ref on the CPU")
+    print(f"[recovery] {label}: {completed} completed + {refused} refused "
+          f"of {RECOVERY_REQUESTS}, {lost} lost, rerouted "
+          f"{stats['rerouted']}, kills {stats['kills']}, respawns "
+          f"{stats['respawns']}; every completion equals cnn_forward_ref "
+          f"(CPU); respawn in {respawn_s:.6f} s with cache {respawn_cache}; "
+          f"a re-admitted after {canaries} canaries; injected "
+          f"{inj.injected}")
+    res = {"requests": RECOVERY_REQUESTS, "completed": completed,
+           "refused": refused, "lost": lost, "rerouted": stats["rerouted"],
+           "kills": stats["kills"], "respawns": stats["respawns"],
+           "cold_build_s": cold_s, "cold_nvcc_runs": cold_nvcc,
+           "respawn_s": respawn_s, "respawn_cache": respawn_cache,
+           "canaries": canaries, "forwards": forwards,
+           "fault_plan": faults.to_payload()}
+
+    # the same 16 seeded images through the parent's respawned gateway
+    warm_imgs = compiled.sample_inputs(WARM_IMAGES, WARM_SEED)
+    gw_p = respawn_gateway(root, "p", [RECOVERY_PLAN_ID], _recovery_config(),
+                           device="cuda")
+    parent_out = np.stack(_serve_images(gw_p, warm_imgs))
+    gw_p.lease.release()
+
+    # 1. a fresh process: LeaseHeld for b, nothing prepared, no nvcc
+    warm = _warm_start_process(root_dir, "c", Path(root_dir) / "warm_c.npz")
+    if not np.array_equal(warm["outputs"], parent_out):
+        raise AssertionError("warm start: outputs differ from the parent's")
+    res["warm"] = {"build_s": float(warm["build_s"]),
+                   "nvcc_runs": int(warm["nvcc_runs"]),
+                   "compiles": int(warm["compiles"]),
+                   "disk_hits": int(warm["disk_hits"]),
+                   "bound": json.loads(str(warm["bound"]))}
+    print(f"[recovery] warm start in a fresh process (worker c): built in "
+          f"{res['warm']['build_s']:.6f} s against {cold_s:.6f} s cold; "
+          f"{res['warm']['nvcc_runs']} nvcc runs, "
+          f"{res['warm']['compiles']} launches prepared, "
+          f"{res['warm']['disk_hits']} loaded; libraries from "
+          f"{res['warm']['bound']}; LeaseHeld for b; its outputs on "
+          f"{WARM_IMAGES} seeded images equal the parent's")
+
+    # 2. every cache entry corrupted: quarantined and re-prepared
+    hit = corrupt_cache_entries(root.exec_cache_dir)
+    gw_d = respawn_gateway(root, "d", [RECOVERY_PLAN_ID], _recovery_config(),
+                           device="cuda")
+    s_d = gw_d.exec_cache.stats()
+    quarantined = sorted(root.exec_cache_dir.glob("*.corrupt"))
+    out_d = np.stack(_serve_images(gw_d, warm_imgs))
+    gw_d.lease.release()
+    if len(hit) != layers or s_d["disk_errors"] != layers \
+            or s_d["compiles"] != layers or len(quarantined) != layers \
+            or not np.array_equal(out_d, parent_out):
+        raise AssertionError(f"corrupt cache: {len(hit)} corrupted, "
+                             f"{len(quarantined)} quarantined, cache {s_d}")
+    res["corrupt_cache"] = {"corrupted": len(hit),
+                            "quarantined": len(quarantined), "cache": s_d}
+    print(f"[recovery] corrupt cache: {len(hit)} entries corrupted, "
+          f"{len(quarantined)} quarantined as *.corrupt and re-prepared "
+          f"({s_d}); outputs equal the parent's")
+
+    # 3. a corrupted kernel library: quarantined and rebuilt, never loaded
+    kdir = root.exec_cache_dir / "kernels"
+    lib = build.library_path("packed_dot_layer", kdir)
+    # a new file in its place: this process may have the old one mapped,
+    # and writing over a mapped library in place faults its pages
+    junk = lib.with_name(lib.name + ".junk")
+    junk.write_bytes(b"\x00garbage, not a shared library\x00")
+    junk.replace(lib)
+    bad = _warm_start_process(root_dir, "e", Path(root_dir) / "warm_e.npz",
+                              rebuilt="packed_dot_layer")
+    if not np.array_equal(bad["outputs"], parent_out):
+        raise AssertionError("corrupt library: outputs differ")
+    res["corrupt_library"] = {"library": lib.name,
+                              "nvcc_runs": int(bad["nvcc_runs"]),
+                              "compiles": int(bad["compiles"])}
+    print(f"[recovery] corrupt library {lib.name}: quarantined as *.corrupt "
+          f"and rebuilt in a fresh process ({int(bad['nvcc_runs'])} nvcc "
+          f"run, {int(bad['compiles'])} launches prepared), the rebuilt "
+          f"one bound; outputs equal the parent's")
+
+    # 4. a torn plan write: the live plan survives, listings skip it
+    other = load_plan(PLANS / f"{UNPINNED}.json").to_json()
+    tmp = tear_plan_write(root.plans, RECOVERY_PLAN_ID, other,
+                          cut=len(other) // 2)
+    if root.plans.load(RECOVERY_PLAN_ID).to_json() != plan.to_json() \
+            or root.plans.list_plans() != [RECOVERY_PLAN_ID] \
+            or not tmp.exists():
+        raise AssertionError("torn write: the live plan did not survive")
+    res["torn_write"] = {"temp": tmp.name, "plans": root.plans.list_plans()}
+    print(f"[recovery] torn plan write {tmp.name}: load('cnn') returns the "
+          f"old plan, listings show {root.plans.list_plans()}; on {smi}")
+    gw_b.lease.release()
+    gw_a2.lease.release()
+    return res
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
@@ -1328,7 +1755,7 @@ def _lm_bound(nbytes, flops, rate):
 
 
 def check_lm_kernels(entries):
-    """Phase 9, kernels: K7 and K8 against their plain versions on the
+    """Phase 10, kernels: K7 and K8 against their plain versions on the
     card at the full-width shapes, timed, into their ``entries``."""
     import numpy as np
     import torch
@@ -1479,7 +1906,7 @@ def _lm_golden_params(z, arch, cfg, device):
 
 
 def lm_golden(entries):
-    """Phase 9, golden: both smoke archs at float32 on the card against
+    """Phase 10, golden: both smoke archs at float32 on the card against
     the JAX reference's committed outputs."""
     import numpy as np
     import torch
@@ -1575,7 +2002,7 @@ def lm_decode_profile(model, params, prompts):
 
 
 def lm_full_width(entries):
-    """Phase 9, full width: the launcher's ``serve_lm`` for both archs at
+    """Phase 10, full width: the launcher's ``serve_lm`` for both archs at
     full width and depth, bf16.  Returns the numbers per arch."""
     import torch
     from repro_torch.configs import get_config
@@ -1663,7 +2090,7 @@ def _leaves(tree):
 
 
 def lm_plain_vs_kernel(entries):
-    """Phase 9, one prefill at full width cut to LM_CUT_LAYERS layers: the
+    """Phase 10, one prefill at full width cut to LM_CUT_LAYERS layers: the
     card (kernels) against the same parameters on the CPU (plain
     versions), bf16."""
     import numpy as np
@@ -1707,6 +2134,16 @@ def lm_plain_vs_kernel(entries):
 
 
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == "--warm-start":
+        # the recovery phase's fresh process (``_warm_start_process``)
+        sys.path.insert(0, str(ROOT / "src"))
+        rest = sys.argv[2:]
+        rebuilt = None
+        if "--rebuilt" in rest:
+            k = rest.index("--rebuilt")
+            rebuilt = rest[k + 1]
+            rest = rest[:k] + rest[k + 2:]
+        return warm_start(*rest, rebuilt=rebuilt)
     try:
         import torch
     except ImportError:
@@ -1757,6 +2194,9 @@ def main() -> int:
         per_plane_forwards(entries)
         planned = plan_on_card(entries)
         gateway = gateway_on_card(entries, smi)
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
+            fleet = fleet_on_card(entries, smi, Path(tmp) / "fleet-cache")
+            recovery = recovery_on_card(entries, smi, Path(tmp) / "root")
         check_lm_kernels(entries)
         lm_golden(entries)
         lm = lm_full_width(entries)
@@ -1771,7 +2211,7 @@ def main() -> int:
                             for e in entries.values()],
                 "images_per_s": rates, "ms_per_step": step_ms,
                 "serve_profile": prof, "plan_on_card": planned,
-                "gateway": gateway,
+                "gateway": gateway, "fleet": fleet, "recovery": recovery,
                 "lm_k7_per_mamba_layer": entries["causal_conv1d"]["per_layer"],
                 "lm_full_width": lm, "lm_cut_plain_vs_kernel": lm_cut,
                 "int32_ops_per_s": int32_rate(), "card": smi}

@@ -35,7 +35,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import conv2d, ref
+from repro_torch.kernels import build, conv2d, ref
 
 BIT_RANGE = (3, 16)     # sweep-supported data/coeff bit widths (paper §3.2)
 
@@ -70,6 +70,15 @@ class ConvBlock:
         design point (False for blocks that never pack)."""
         del data_bits, coeff_bits
         return False
+
+    def serving_kernels(self, data_bits: int, coeff_bits: int
+                        ) -> Tuple[str, ...]:
+        """The kernel libraries ``apply_batched_requant`` launches at
+        this design point on the card — what preparing a serving launch
+        builds.  Default: every kernel of ``build.KERNELS`` (a block
+        that does not say); the paper's blocks name their own."""
+        del data_bits, coeff_bits
+        return build.KERNELS
 
     # -- execution ----------------------------------------------------
 

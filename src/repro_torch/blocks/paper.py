@@ -34,6 +34,9 @@ from repro_torch.kernels import conv2d
 class Conv1Block(ConvBlock):
     """Multiply-free shift-add (LUT+carry-chain analogue)."""
 
+    def serving_kernels(self, data_bits, coeff_bits):
+        return ("conv1_layer",)
+
     def kernel_body(self, *, data_bits, coeff_bits):
         return functools.partial(conv2d.conv1_tile, data_bits=data_bits,
                                  coeff_bits=coeff_bits)
@@ -58,6 +61,9 @@ class Conv1Block(ConvBlock):
 @dataclass(frozen=True)
 class Conv2Block(ConvBlock):
     """im2col + one integer dot (1-DSP analogue)."""
+
+    def serving_kernels(self, data_bits, coeff_bits):
+        return ("fused_dot_layer",)
 
     def kernel_body(self, *, data_bits, coeff_bits):
         return functools.partial(conv2d.conv2_tile, data_bits=data_bits,
@@ -87,6 +93,10 @@ class Conv3Block(ConvBlock):
     def packed_ok(self, data_bits, coeff_bits):
         return conv2d.conv3_packed_ok(data_bits, coeff_bits)
 
+    def serving_kernels(self, data_bits, coeff_bits):
+        return (("packed_dot_layer",) if self.packed_ok(data_bits, coeff_bits)
+                else ("fused_dot_layer",))
+
     def kernel_body(self, *, data_bits, coeff_bits):
         return functools.partial(conv2d.conv3_tile, data_bits=data_bits,
                                  coeff_bits=coeff_bits)
@@ -115,6 +125,9 @@ class Conv3Block(ConvBlock):
 @dataclass(frozen=True)
 class Conv4Block(ConvBlock):
     """Two parallel dots (2-DSP analogue), two convolutions per step."""
+
+    def serving_kernels(self, data_bits, coeff_bits):
+        return ("fused_dot_layer",)
 
     def kernel_body(self, *, data_bits, coeff_bits):
         return functools.partial(conv2d.conv4_tile, data_bits=data_bits,

@@ -1,4 +1,4 @@
-"""Serving launcher of the port: the synchronous and the async CNN
+"""Serving launcher of the port: the synchronous, async and fleet CNN
 paths and the LM path of ``repro.launch.serve``, on the card.
 
   # plan the quickstart CNN for a catalog device, then serve the plan
@@ -21,6 +21,15 @@ paths and the LM path of ``repro.launch.serve``, on the card.
       [--deadline-ms 2] [--wait-budget-ms 5] [--max-inflight 2] \
       [--metrics-out metrics.jsonl] [--torch-device cuda|cpu]
 
+  # the fleet: one gateway per catalog profile (edge0, v5e0, v5p0, each
+  # serving the plan the planner makes for its profile), tiered Poisson
+  # arrivals at --occupancy × one bare full-batch forward, routed by
+  # --router; --drain drains v5e0 halfway through the trace
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload cnn --fleet \
+      --requests 4096 --max-batch 16 --max-pending 32 [--occupancy 1.0] \
+      [--router plan_aware|least_loaded|round_robin] [--drain] [--seed 1] \
+      [--cache-dir DIR | --store-root DIR] [--torch-device cuda|cpu]
+
   # serve a zoo LM (its reduced "smoke" config, as the reference does)
   PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \\
       [--arch llama3.2-3b] --requests 6 --prompt-len 16 --new-tokens 24 \\
@@ -36,14 +45,21 @@ the keys ``<plan file stem>.w0``, ``.w1``, …, as the committed golden
 file stores them; without it the weights are a seeded draw.
 ``--plan-store DIR`` (without ``--plan``) serves the plan stored under
 ``cnn-<--device>`` in that ``ops.PlanStore``, or plans once and stores
-it; ``--metrics-out FILE`` streams lifecycle events and periodic stats
+it; ``--cache-dir DIR`` prepares every (layer, bucket) launch through
+an ``ops.PersistentExecutableCache`` there (kernel libraries under
+``DIR/kernels``), so a warm restart prepares nothing and runs no
+``nvcc``; ``--store-root DIR`` is one ``ops.StoreRoot`` standing in for
+both (plans under ``DIR/plans``, the cache under ``DIR/exec-cache``);
+``--metrics-out FILE`` streams lifecycle events and periodic stats
 snapshots there as JSON lines (``ops.JsonlTracker``), on every path.
 ``--workload lm`` serves ``smoke_config(--arch)`` with parameters drawn
 from a generator seeded with 0 and prompts from ``numpy``'s
 ``default_rng(0)``, through ``serve_lm``, which takes any
 ``ModelConfig`` (the full-width configs too).  Prints what the
 reference's ``run_cnn``, ``run_cnn_async`` and ``run_lm`` print, with
-the device's name.
+the device's name; ``--fleet`` prints what the reference's
+``run_cnn_fleet`` prints, with latency from each request's scheduled
+arrival, and walks the arrivals with one producer.
 """
 
 from __future__ import annotations
@@ -64,7 +80,8 @@ from repro_torch.core import allocate, deploy
 from repro_torch.core.cnn import fitted_block_models, quickstart_cnn_config
 from repro_torch.device import device_name, resolve_device
 from repro_torch.models import build_model
-from repro_torch.ops import JsonlTracker, PlanStore, StatsSampler
+from repro_torch.ops import (JsonlTracker, PersistentExecutableCache,
+                             PlanStore, StatsSampler, StoreRoot)
 from repro_torch.runtime import load_plan, save_plan
 from repro_torch.runtime.compiled import dtype_name
 from repro_torch.serve import (AsyncCNNGateway, AsyncServeConfig,
@@ -79,6 +96,33 @@ def _percentiles(lat_s):
 
 
 # -- ops flags ---------------------------------------------------------------
+def _apply_store_root(args) -> None:
+    """``--store-root`` → one shared ``ops.StoreRoot`` standing in for
+    both ``--plan-store`` and ``--cache-dir``: every worker process
+    pointed at the same DIR shares one plan repository and one
+    executable cache — which is what lets a respawned worker rebuild
+    its predecessor's serving state with zero preparations (see
+    ``repro_torch.chaos.respawn_gateway``)."""
+    if not getattr(args, "store_root", None):
+        return
+    root = StoreRoot(args.store_root)
+    args.plan_store = str(root.root)
+    args.cache_dir = str(root.exec_cache_dir)
+    print(f"[ops] shared store root at {args.store_root!r} "
+          f"(plans + exec cache + leases)")
+
+
+def _ops_cache(args) -> Optional[PersistentExecutableCache]:
+    """``--cache-dir`` → a ``PersistentExecutableCache`` every
+    preparation in this process goes through; None without the flag
+    (the callers fall back to an in-memory cache)."""
+    if not getattr(args, "cache_dir", None):
+        return None
+    cache = PersistentExecutableCache(args.cache_dir)
+    print(f"[ops] persistent executable cache at {args.cache_dir!r}")
+    return cache
+
+
 def _ops_tracker(args):
     """``--metrics-out`` → a ``JsonlTracker``; None without the flag."""
     if not getattr(args, "metrics_out", None):
@@ -94,7 +138,7 @@ def _ops_sampler(tracker, sources, interval_s=0.5):
     return StatsSampler(tracker, sources, interval_s=interval_s)
 
 
-def _ops_finish(tracker, sampler=None):
+def _ops_finish(tracker, sampler=None, cache=None):
     """Flush ops state at the end of a run and say where it went."""
     if sampler is not None:
         sampler.close()
@@ -102,14 +146,22 @@ def _ops_finish(tracker, sampler=None):
         tracker.close()
         print(f"[ops] metrics: {tracker.recorded} records "
               f"({tracker.dropped} dropped) → {tracker.path}")
+    if cache is not None:
+        s = cache.stats()
+        print(f"[ops] exec cache: {s['compiles']} prepared, "
+              f"{s['disk_hits']} loaded from disk, "
+              f"{s['disk_stores']} persisted, {s['disk_errors']} "
+              f"corrupt or unwritable, {s['disk_stale']} stale")
 
 
-def _plan_from_store(args, workload: str, compute):
+def _plan_from_store(args, workload: str, compute,
+                     device: Optional[str] = None):
     """Resolve the plan through ``--plan-store``: serve the stored plan
-    under ``<workload>-<device>`` if present, otherwise run
-    ``compute()`` and persist the result — the next launch loads it."""
+    under ``<workload>-<device>`` (``--device`` unless ``device`` is
+    given) if present, otherwise run ``compute()`` and persist the
+    result — the next launch loads it."""
     store = PlanStore(args.plan_store)
-    store_id = f"{workload}-{args.device}"
+    store_id = f"{workload}-{device or args.device}"
     if store_id in store:
         plan = store.load(store_id)
         print(f"[serve] loaded plan {store_id!r} from store "
@@ -174,11 +226,13 @@ def run_cnn(args) -> Tuple[CNNEngine, List[ImageRequest], float]:
     returns the engine, the served requests and the serving seconds."""
     device = resolve_device(args.torch_device)
     plan = cnn_plan(args)
+    cache = _ops_cache(args)
     tracker = _ops_tracker(args)
     t0 = time.perf_counter()
     engine = CNNEngine.from_plan(           # prepares every bucket
         plan, params=_plan_params(args, plan, device),
-        serve_cfg=CNNServeConfig(max_batch=args.max_batch), device=device)
+        serve_cfg=CNNServeConfig(max_batch=args.max_batch), device=device,
+        exec_cache=cache)
     sampler = _ops_sampler(tracker, {"engine": engine.stats})
     print(f"[serve] AOT warmup: {len(engine.compiled.buckets)} buckets × "
           f"{len(engine.cfg.layers)} layers compiled in "
@@ -196,7 +250,7 @@ def run_cnn(args) -> Tuple[CNNEngine, List[ImageRequest], float]:
           f"{device_name(device)}")
     print(f"[serve] occupancy histogram: {stats['occupancy_hist']}  "
           f"bucket hits: {stats['bucket_hits']}")
-    _ops_finish(tracker, sampler)
+    _ops_finish(tracker, sampler, cache)
     return engine, reqs, dt
 
 
@@ -249,6 +303,7 @@ def run_cnn_async(args, *, keep_every: int = 0
     scheduled one."""
     device = resolve_device(args.torch_device)
     plan = cnn_plan(args)
+    cache = _ops_cache(args)
     tracker = _ops_tracker(args)
     t0 = time.perf_counter()
     wait_budget = (args.wait_budget_ms / 1e3
@@ -259,7 +314,7 @@ def run_cnn_async(args, *, keep_every: int = 0
                                max_inflight=args.max_inflight,
                                wait_budget_s=wait_budget),
         params=_plan_params(args, plan, device), device=device,
-        tracker=tracker)
+        exec_cache=cache, tracker=tracker)
     gw.stage_log = []
     sampler = _ops_sampler(tracker, {"gateway": gw.stats})
     compiled = gw.plans["plan0"].compiled
@@ -365,7 +420,7 @@ def run_cnn_async(args, *, keep_every: int = 0
               + (f"{gstep:.3f}ms" if gstep is not None else "n/a")
               + f"; worker busy {stages['worker_busy'] * 100:.1f}% of "
               f"the wall")
-    _ops_finish(tracker, sampler)
+    _ops_finish(tracker, sampler, cache)
     res = {"requests": args.requests, "served": stats["served"],
            "shed": shed, "expired": stats["expired"],
            "failed": stats["failed"], "wall_s": wall,
@@ -381,6 +436,225 @@ def run_cnn_async(args, *, keep_every: int = 0
     if keep_every:
         res["outputs"] = sorted(kept, key=lambda t: t[0])
     return gw, res
+
+
+#: the fleet's workers: one per catalog profile, named ``<profile>0``
+FLEET_PROFILES = ("edge", "v5e", "v5p")
+#: the kernel entry a serving layer launches, by the library it runs
+_REQUANT_ENTRY = {"fused_dot_layer": "fused_dot_layer_requant",
+                  "packed_dot_layer": "packed_dot_layer_requant",
+                  "conv1_layer": "conv1_layer"}
+
+
+def plan_kernel_entries(plan) -> Tuple[str, ...]:
+    """The kernel entry each layer of ``plan`` launches per served
+    forward on the card (``LayerLaunch``: K1's or K2's requantizing
+    entry for a dot block, K3 for Conv1)."""
+    from repro_torch.blocks import get_block
+    return tuple(_REQUANT_ENTRY[lib]
+                 for a in plan.layers
+                 for lib in get_block(a.block).serving_kernels(
+                     a.data_bits, a.coeff_bits))
+
+
+def fleet_plans(args) -> dict:
+    """The plan the port's planner makes for each of ``FLEET_PROFILES``
+    on the quickstart CNN (through ``--plan-store`` under
+    ``cnn-<profile>`` when given)."""
+    cfg = quickstart_cnn_config()
+    plans = {}
+    for name in FLEET_PROFILES:
+        def compute(name=name):
+            return deploy.plan_deployment(
+                cfg, fitted_block_models(), allocate.get_device(name),
+                target=0.8, on_infeasible="fallback")
+        plans[name] = (_plan_from_store(args, "cnn", compute, device=name)
+                       if args.plan_store else compute())
+    return plans
+
+
+def run_cnn_fleet(args, *, keep_every: int = 0):
+    """Plan-aware fleet front door: one gateway per device profile
+    (``FLEET_PROFILES``, each serving the plan the planner makes for
+    *that* profile under one shared plan id ``cnn``), tiered Poisson
+    traffic (``fleet.DEFAULT_TIERS``, from ``--seed``) at
+    ``--occupancy`` × one bare full-batch forward of ``v5e0``, routed by
+    ``--router``.  ``--drain`` gracefully drains ``v5e0`` when the
+    producer reaches the middle of the trace — queued requests
+    re-route, in-flight batches finish, nothing is lost.
+
+    One producer walks the arrival schedule (as ``run_cnn_async``
+    does) and admits with ``submit_nowait``: a request no worker can
+    take is shed at the door.  Reports per-tier p50/p95/p99 from the
+    scheduled arrival, served, expired, shed, refused (no admissible
+    worker), failed and lost (admitted, then no worker took its
+    re-route) counts, ``rerouted``, ``retried``, ``drains`` and each
+    worker's served count.  Returns the closed fleet and the run's
+    numbers; with ``keep_every`` k > 0 they include ``outputs``, the
+    ``(index, worker_id, image, output)`` of every served request whose
+    index is a multiple of k, so each output can be checked against the
+    plan and weights of the worker that served it."""
+    from repro_torch.fleet import (DEFAULT_TIERS, Fleet, FleetSaturated,
+                                   FleetWorker, NoWorkerAvailable)
+    device = resolve_device(args.torch_device)
+    plans = fleet_plans(args)
+    cache = _ops_cache(args)
+    tracker = _ops_tracker(args)
+    t0 = time.perf_counter()
+    workers = []
+    for name, plan in plans.items():
+        gw = AsyncCNNGateway.from_plan(
+            plan, AsyncServeConfig(max_batch=args.max_batch,
+                                   max_pending=args.max_pending),
+            plan_id="cnn", device=device, exec_cache=cache,
+            tracker=tracker)
+        workers.append(FleetWorker(f"{name}0", gw, name))
+    build_s = time.perf_counter() - t0
+    print(f"[fleet] {len(workers)} workers "
+          f"({', '.join(f'{w.worker_id}:{w.profile.name}' for w in workers)})"
+          f" prepared in {build_s:.2f}s")
+    for w, plan in zip(workers, plans.values()):
+        print(f"[fleet]   {w.worker_id:<6} plan "
+              + ", ".join(f"L{a.index}={a.block}@d{a.data_bits}/"
+                          f"c{a.coeff_bits}" for a in plan.layers)
+              + f"; launches {list(plan_kernel_entries(plan))}")
+
+    compiled = workers[1].gateway.plans["cnn"].compiled
+    imgs = compiled.sample_inputs(args.requests)
+    np_dtype = np.dtype(dtype_name(compiled.in_dtype))
+    xb = torch.from_numpy(np.stack([np.asarray(i, np_dtype)
+                                    for i in imgs[:args.max_batch]]))
+    compiled(xb)                                   # touch
+    _sync(device)
+    t0 = time.perf_counter()
+    compiled(xb)
+    _sync(device)
+    step_s = time.perf_counter() - t0
+    rate = args.occupancy * args.max_batch / step_s
+    print(f"[fleet] full-batch step of {workers[1].worker_id} "
+          f"{step_s * 1e3:.2f}ms → offered load {rate:.0f} images/s "
+          f"(occupancy {args.occupancy:g} of one worker), router "
+          f"{args.router!r}")
+
+    rng = np.random.default_rng(args.seed)
+    arrivals = np.cumsum(rng.exponential(1.0 / rate, args.requests))
+    tiers = list(DEFAULT_TIERS)
+    shares = [t.share for t in DEFAULT_TIERS.values()]
+    tier_of = rng.choice(len(tiers), size=args.requests, p=shares)
+
+    async def drive():
+        per_tier = {t: [] for t in tiers}
+        counts = dict(served=0, expired=0, shed=0, refused=0, failed=0,
+                      lost=0)
+        kept, lags, futs = [], [], []
+        fleet = Fleet(workers, router=args.router, tracker=tracker)
+        sampler = _ops_sampler(tracker, {"fleet": fleet.stats})
+
+        def settled(i, tier, due, fut):
+            if fut.cancelled():
+                counts["failed"] += 1
+                return
+            exc = fut.exception()
+            if exc is None:
+                counts["served"] += 1
+                per_tier[tier].append(time.monotonic() - due)
+                if keep_every and i % keep_every == 0:
+                    kept.append((i, fut.request.worker.worker_id, imgs[i],
+                                 fut.result()))
+            elif isinstance(exc, DeadlineExpired):
+                counts["expired"] += 1
+            elif isinstance(exc, GatewayBacklog):
+                counts["shed"] += 1        # shed for a higher class
+            elif isinstance(exc, NoWorkerAvailable):
+                counts["lost"] += 1        # admitted, then nowhere to go
+            else:
+                counts["failed"] += 1
+
+        async with fleet:
+            drain = None
+            t_start = time.monotonic()
+            for i, at in enumerate(arrivals):
+                if args.drain and i == args.requests // 2:
+                    print("[fleet] draining v5e0 ...")
+                    drain = asyncio.ensure_future(fleet.drain("v5e0"))
+                due = t_start + at
+                await asyncio.sleep(max(0.0, due - time.monotonic()))
+                lags.append(time.monotonic() - due)
+                tier = tiers[tier_of[i]]
+                try:
+                    fut = fleet.submit_nowait(
+                        imgs[i], tier=tier,
+                        deadline=DEFAULT_TIERS[tier].deadline_s)
+                except FleetSaturated:
+                    counts["shed"] += 1
+                    continue
+                except NoWorkerAvailable:
+                    counts["refused"] += 1
+                    continue
+                fut.add_done_callback(
+                    functools.partial(settled, i, tier, due))
+                futs.append(fut)
+            produced = time.monotonic() - t_start
+            await asyncio.gather(*futs, return_exceptions=True)
+            if drain is not None:
+                await drain
+                print("[fleet] v5e0 drained (in-flight finished, queue "
+                      "re-routed)")
+            stats = fleet.stats()
+        if sampler is not None:
+            sampler.close()
+        return (per_tier, counts, kept, lags, produced, stats,
+                time.monotonic() - t_start, fleet)
+
+    per_tier, counts, kept, lags, produced, stats, wall, fleet = \
+        asyncio.run(drive())
+    achieved = args.requests / produced if produced > 0 else float("inf")
+    lag_ms = np.asarray(lags) * 1e3
+    print(f"[fleet] {counts['served']} served / "
+          f"{counts['expired'] + counts['shed']} expired-or-shed "
+          f"({counts['expired']} expired, {counts['shed']} shed) / "
+          f"{counts['refused']} refused / {counts['failed']} failed / "
+          f"{counts['lost']} lost of {args.requests} in {wall:.2f}s "
+          f"({counts['served'] / wall:.1f} images/s) on "
+          f"{device_name(device)}  (rerouted={stats['rerouted']}, "
+          f"retried={stats['retried']}, drains={stats['drains']})")
+    print(f"[fleet] arrivals offered at {achieved:.0f} images/s of the "
+          f"{rate:.0f} scheduled (producer lag p50 "
+          f"{np.percentile(lag_ms, 50):.2f}ms, max {lag_ms.max():.2f}ms)")
+    tier_pct = {}
+    for tier, lats in per_tier.items():
+        if not lats:
+            continue
+        pct = tier_pct[tier] = {"n": len(lats), **{
+            k: float(v) for k, v in _percentiles(lats).items()}}
+        print(f"[fleet]   {tier:<12} n={len(lats):<5} "
+              f"p50={pct['p50_ms']:.1f}ms p95={pct['p95_ms']:.1f}ms "
+              f"p99={pct['p99_ms']:.1f}ms (from the scheduled arrival)")
+    per_worker = {}
+    for wid, w in stats["workers"].items():
+        snap = w["snapshot"] or {}
+        per_worker[wid] = {"profile": w["profile"],
+                           "served": snap.get("served", 0),
+                           "draining": w["draining"]}
+        print(f"[fleet]   {wid:<8} profile={w['profile']:<5} "
+              f"served={snap.get('served', 0):<5} "
+              f"draining={w['draining']}")
+    _ops_finish(tracker, cache=cache)
+    res = {"requests": args.requests, **counts,
+           "rerouted": stats["rerouted"], "retried": stats["retried"],
+           "drains": stats["drains"], "wall_s": wall, "build_s": build_s,
+           "step_ms": step_s * 1e3, "offered_per_s": rate,
+           "achieved_offered_per_s": achieved,
+           "producer_lag_p50_ms": float(np.percentile(lag_ms, 50)),
+           "producer_lag_max_ms": float(lag_ms.max()),
+           "images_per_s": counts["served"] / wall, "per_tier": tier_pct,
+           "per_worker": per_worker,
+           "plans": {f"{name}0": list(plan_kernel_entries(plan))
+                     for name, plan in plans.items()},
+           "cache": cache.stats() if cache is not None else None}
+    if keep_every:
+        res["outputs"] = sorted(kept, key=lambda t: t[0])
+    return fleet, res
 
 
 def _sync(device: torch.device) -> None:
@@ -482,6 +756,28 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--deadline-ms", type=float, default=None,
                     help="per-request deadline; late requests are "
                          "expired, never served late (cnn --async)")
+    ap.add_argument("--fleet", action="store_true",
+                    help="serve tiered traffic through an edge/v5e/v5p "
+                         "fleet front door, one gateway per profile (cnn)")
+    ap.add_argument("--router", default="plan_aware",
+                    choices=("plan_aware", "least_loaded", "round_robin"),
+                    help="fleet routing policy (cnn --fleet)")
+    ap.add_argument("--drain", action="store_true",
+                    help="gracefully drain the v5e worker halfway "
+                         "through the trace (cnn --fleet)")
+    ap.add_argument("--seed", type=int, default=1,
+                    help="rng seed for the fleet's traffic (cnn --fleet)")
+    ap.add_argument("--store-root", default=None, metavar="DIR",
+                    help="shared store root (repro_torch.ops.StoreRoot): "
+                         "one DIR holding the plan store, the executable "
+                         "cache and worker leases (replaces --plan-store "
+                         "and --cache-dir)")
+    ap.add_argument("--cache-dir", default=None, metavar="DIR",
+                    help="persistent executable cache (repro_torch.ops."
+                         "PersistentExecutableCache): warm restarts make "
+                         "their launches from DIR's records and load the "
+                         "kernel libraries under DIR/kernels instead of "
+                         "preparing and building (cnn, all paths)")
     ap.add_argument("--plan-store", default=None, metavar="DIR",
                     help="durable plan repository (repro_torch.ops."
                          "PlanStore): load the plan from DIR if present, "
@@ -494,13 +790,22 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     if args.params and not args.plan:
         ap.error("--params names weights by the --plan file's stem; "
                  "pass --plan with it")
+    if args.store_root and (args.plan_store or args.cache_dir):
+        ap.error("--store-root replaces --plan-store and --cache-dir; "
+                 "give one or the other")
+    if args.fleet and (args.plan or args.async_):
+        ap.error("--fleet plans each worker's profile itself and serves "
+                 "through gateways; drop --plan and --async")
     return args
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
+    _apply_store_root(args)
     if args.workload == "lm":
         run_lm(args)
+    elif args.fleet:
+        run_cnn_fleet(args)
     elif args.async_:
         run_cnn_async(args)
     else:

@@ -15,15 +15,19 @@ shared ``ExecutableCache`` never mixes two plans' weights.
 
 Kept from the reference: the bucket ladder, padding to the bucket and
 slicing off, chunking above ``max_batch``, ``should_abort`` polled
-between layers, the single-flight cache with its ``on_event`` seam, and
-the telemetry of ``stats()``.  Outputs are bit-exact against
-``cnn_forward_ref`` at every batch size.
+between layers, the single-flight cache with its ``on_event`` seam and
+its ``_produce`` seam (where ``ops.PersistentExecutableCache`` adds a
+disk tier of ``LayerLaunch`` records), and the telemetry of
+``stats()``.  Outputs are bit-exact against ``cnn_forward_ref`` at
+every batch size.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
+from pathlib import Path
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -58,8 +62,11 @@ class ExecutableCache:
     another thread is waited on, never produced twice (``coalesced``
     counts those waits).  ``on_event`` (``callable(event, fields)``)
     receives the rare cache transitions — compiles — never per-dispatch
-    hits.
+    hits.  ``kernel_dir`` is the directory a card's preparation builds
+    and loads the kernel libraries from (None: ``build.BUILD_DIR``).
     """
+
+    kernel_dir: Optional[Path] = None
 
     def __init__(self, *, on_event: Optional[Callable[[str, dict],
                                                       None]] = None):
@@ -91,6 +98,18 @@ class ExecutableCache:
         except Exception:              # noqa: BLE001 — observer only
             pass
 
+    def _produce(self, key: tuple, build: Callable[[], object]
+                 ) -> Tuple[object, bool]:
+        """Produce the executable for a missing ``key`` — called
+        outside the lock, single-flighted per key.  Returns
+        ``(executable, compiled)`` where ``compiled`` says ``build()``
+        actually ran (a disk tier returns False for a load)."""
+        t0 = time.perf_counter()
+        exe = build()
+        self._emit("cache_compile", key=repr(key)[:160],
+                   seconds=time.perf_counter() - t0)
+        return exe, True
+
     def get_or_build(self, key: tuple, build: Callable[[], object]):
         with self._cond:
             while True:
@@ -105,8 +124,7 @@ class ExecutableCache:
                 self.coalesced += 1
                 self._cond.wait()
         try:
-            t0 = time.perf_counter()
-            exe = build()                               # outside the lock
+            exe, compiled = self._produce(key, build)   # outside the lock
         except BaseException:
             with self._cond:
                 # failed production frees the key: a parked waiter (or
@@ -114,12 +132,11 @@ class ExecutableCache:
                 self._building.discard(key)
                 self._cond.notify_all()
             raise
-        self._emit("cache_compile", key=repr(key)[:160],
-                   seconds=time.perf_counter() - t0)
         with self._cond:
             self._building.discard(key)
             self._execs[key] = exe
-            self.compiles += 1
+            if compiled:
+                self.compiles += 1
             self._cond.notify_all()
         return exe
 
@@ -346,18 +363,61 @@ class LayerLaunch:
     shape and container — one kernel launch for the dot blocks, whose
     epilogue requantizes (``fused_dot_layer_requant``,
     ``packed_dot_layer_requant``); Conv1's layer kernel, then
-    ``conv2d.requantize``.  Preparing one for the card builds the CUDA kernels
-    (once per process and source hash).  Called as ``launch(w, x)`` with
-    the layer's device-resident weights, like the reference's
-    executables."""
+    ``conv2d.requantize``.  Preparing one for the card builds and binds
+    the kernel libraries the block's layer launches
+    (``ConvBlock.serving_kernels``: K1 for conv2, conv4 and unpacked
+    conv3, K2 for packed conv3, K3 for conv1) in ``kernel_dir``
+    (``build.BUILD_DIR`` by default); on the CPU there are none.
+    Called as ``launch(w, x)`` with the layer's device-resident
+    weights, like the reference's executables.
+
+    ``record()`` is everything a disk entry needs to make the launch
+    again with no preparation — its identity and the libraries it
+    launches — and ``from_record`` makes it, checking each library in
+    ``kernel_dir`` against its hash (``build.prepare``)."""
 
     def __init__(self, block: ConvBlock, spec: ConvLayerSpec,
                  in_shape: Tuple[int, ...], in_dtype: torch.dtype,
-                 device: torch.device):
+                 device: torch.device, *,
+                 kernel_dir: Optional[Path] = None):
         self.block, self.spec = block, spec
         self.in_shape, self.in_dtype, self.device = in_shape, in_dtype, device
-        if device.type == "cuda":
-            build.build()
+        self.libraries: Tuple[str, ...] = (
+            block.serving_kernels(spec.data_bits, spec.coeff_bits)
+            if device.type == "cuda" else ())
+        if self.libraries:
+            build.prepare(self.libraries, kernel_dir)
+
+    def record(self) -> dict:
+        """The launch as JSON-ready fields (see the class docstring)."""
+        return {"block": self.block.name,
+                "spec": dataclasses.asdict(self.spec),
+                "in_shape": list(self.in_shape),
+                "in_dtype": dtype_name(self.in_dtype),
+                "device": str(self.device),
+                "libraries": list(self.libraries)}
+
+    @classmethod
+    def from_record(cls, record: dict, *,
+                    kernel_dir: Optional[Path] = None) -> "LayerLaunch":
+        """The launch ``record()`` describes; raises ``ValueError`` on a
+        record that names no such launch."""
+        dtype = getattr(torch, record["in_dtype"])
+        if not isinstance(dtype, torch.dtype):
+            raise ValueError(f"not a dtype: {record['in_dtype']!r}")
+        try:
+            device = torch.device(record["device"])
+        except RuntimeError as e:
+            raise ValueError(f"not a device: {record['device']!r}") from e
+        launch = cls(get_block(record["block"]),
+                     ConvLayerSpec(**record["spec"]),
+                     tuple(int(d) for d in record["in_shape"]), dtype,
+                     device, kernel_dir=kernel_dir)
+        if list(launch.libraries) != list(record["libraries"]):
+            raise ValueError(
+                f"record names libraries {record['libraries']}, the "
+                f"block launches {list(launch.libraries)}")
+        return launch
 
     def __call__(self, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         if tuple(x.shape) != self.in_shape or x.dtype != self.in_dtype \
@@ -430,6 +490,20 @@ class CompiledCNN(CompiledModel):
         from repro_torch.core import deploy
         return cls.from_plan(deploy.DeploymentPlan.from_json(text), **kw)
 
+    def warmup(self) -> "CompiledCNN":
+        """Prepare every (layer, bucket) launch now.  On the card the
+        plan's kernel libraries are made ready first, all in one
+        ``build.prepare`` (the missing ones built together, one ``nvcc``
+        each), where preparing layer by layer would build them one
+        after another."""
+        if self.device.type == "cuda":
+            build.prepare(sorted({
+                lib for blk, spec in zip(self.blocks, self.cfg.layers)
+                for lib in blk.serving_kernels(spec.data_bits,
+                                               spec.coeff_bits)}),
+                self.cache.kernel_dir)
+        return super().warmup()
+
     # -- backend hooks ----------------------------------------------------
     def _layer_key(self, i: int, bucket: int) -> tuple:
         spec = self.cfg.layers[i]
@@ -442,7 +516,8 @@ class CompiledCNN(CompiledModel):
         return LayerLaunch(
             self.blocks[i], spec,
             (bucket, self.cfg.img_h, self.cfg.img_w, spec.in_channels),
-            conv2d.container_dtype(spec.data_bits), self.device)
+            conv2d.container_dtype(spec.data_bits), self.device,
+            kernel_dir=self.cache.kernel_dir)
 
     def _layer_params(self, i: int) -> torch.Tensor:
         return self.params[i]

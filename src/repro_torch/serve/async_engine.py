@@ -7,8 +7,10 @@ here: class-aware shedding ejects a victim only when that one ejection
 makes room for the arrival (``AdmissionQueue.shed_victim``), and
 cancelling a future that ``submit``/``submit_nowait`` returned cancels
 its request before ``cancel()`` returns (``_RequestFuture``).  The
-fault-injection seam of the reference (``faults=``) is not here yet,
-and ``exec_cache`` takes the in-memory ``ExecutableCache``.
+reference's fault-injection seam is here (``faults=``, consulted at the
+"dispatch" point inside a batch's ``try`` and the "heartbeat" point in
+``snapshot()``), and ``exec_cache`` takes any ``ExecutableCache``,
+``ops.PersistentExecutableCache`` included.
 
 The sync ``CNNEngine`` is a *tick loop*: gather whatever occupies the
 slots, run one blocking step, scatter, repeat — fine for offline
@@ -467,7 +469,7 @@ class AsyncCNNGateway(SlotPool):
     def __init__(self, cfg: Optional[AsyncServeConfig] = None, *,
                  clock: Callable[[], float] = time.monotonic,
                  exec_cache: Optional[ExecutableCache] = None,
-                 tracker=None):
+                 tracker=None, faults=None):
         cfg = cfg if cfg is not None else AsyncServeConfig()
         if cfg.max_inflight < 1:
             raise ValueError(f"max_inflight={cfg.max_inflight} must be ≥ 1")
@@ -485,7 +487,8 @@ class AsyncCNNGateway(SlotPool):
         # in-flight dispatch: with max_inflight > 1 the next batch can
         # occupy slots (and launch) while the previous is on-device —
         # dispatch width itself stays cfg.max_batch (see _drain).
-        super().__init__(cfg.max_batch * cfg.max_inflight, clock=clock)
+        super().__init__(cfg.max_batch * cfg.max_inflight, clock=clock,
+                         faults=faults)
         self.cfg = cfg
         self.clock = clock
         self.queue = AdmissionQueue(cfg.max_pending, cfg.policy)
@@ -580,8 +583,9 @@ class AsyncCNNGateway(SlotPool):
                   device: DeviceLike = "cuda",
                   clock: Callable[[], float] = time.monotonic,
                   exec_cache: Optional[ExecutableCache] = None,
-                  tracker=None) -> "AsyncCNNGateway":
-        gw = cls(cfg, clock=clock, exec_cache=exec_cache, tracker=tracker)
+                  tracker=None, faults=None) -> "AsyncCNNGateway":
+        gw = cls(cfg, clock=clock, exec_cache=exec_cache, tracker=tracker,
+                 faults=faults)
         gw.register_plan(plan, plan_id=plan_id, params=params,
                          generator=generator, device=device)
         return gw
@@ -1012,6 +1016,12 @@ class AsyncCNNGateway(SlotPool):
                     return out
 
                 try:
+                    # chaos seam: a scheduled worker crash raises here
+                    # and rides the failed-dispatch path below — the
+                    # requests fail, the fleet takes a health strike
+                    # and re-routes, exactly as for a real device loss
+                    self._fault_check("dispatch", plan_id=entry.plan_id,
+                                      n=len(alive))
                     out = await self._loop.run_in_executor(
                         self._executor, dispatch)
                 except DispatchAborted:
@@ -1093,6 +1103,10 @@ class AsyncCNNGateway(SlotPool):
         every terminal counter in a single pass — the heartbeat the
         fleet health checks and routers read (never racing dict
         reads)."""
+        # chaos seam: a stalled/crashed worker raises here, which
+        # ``FleetWorker.view`` reads as a missed heartbeat — the same
+        # path a hung process takes
+        self._fault_check("heartbeat")
         return super().snapshot(
             clock=self.clock, queue_depth=len(self.queue),
             served=self.served, rejected=self.rejected,

@@ -1,8 +1,9 @@
 """Shared fixed-slot-pool discipline for the serving engines.
 
 A copy of ``repro.serve.slots`` (the port keeps its own, importing
-nothing of ``repro``), without the fault-injection seam, which arrives
-with the port of ``repro.chaos``.  Every engine runs the same
+nothing of ``repro``), with its fault-injection seam (``faults=``,
+``_fault_check``) that ``repro_torch.chaos`` drives.  Every engine runs
+the same
 bookkeeping: a fixed pool of ``max_batch`` request slots, a queue that
 backfills free slots, and one engine ``step`` per drain over the
 occupied slots.  ``SlotPool`` centralizes it:
@@ -97,7 +98,8 @@ class GatewayStats:
 class SlotPool:
     def __init__(self, max_batch: int, *,
                  clock: Callable[[], float] = time.monotonic,
-                 rate_alpha: float = 0.25):
+                 rate_alpha: float = 0.25,
+                 faults=None):
         if max_batch < 1:
             raise ValueError(
                 f"max_batch={max_batch} must be ≥ 1 (a zero-slot "
@@ -106,6 +108,13 @@ class SlotPool:
             raise ValueError(
                 f"rate_alpha={rate_alpha} must be in (0, 1]")
         self.max_batch = max_batch
+        # fault-injection seam (repro_torch.chaos): an object with
+        # ``check(point, now=..., **ctx)`` consulted at named failure
+        # points ("dispatch", "heartbeat", ...).  Raising from a check
+        # is how a scheduled fault manifests — the call sites place the
+        # check exactly where the real failure would surface, so the
+        # injected fault rides the production error path, not a mock's.
+        self.faults = faults
         self.active: List[Optional[object]] = [None] * max_batch
         # realized live-slot counts: _occupancy[k-1] = steps that ran
         # with exactly k occupied slots (k ≥ 1; empty ticks don't step).
@@ -178,6 +187,15 @@ class SlotPool:
         waiting for capacity wake the moment a slot frees."""
         self._release_hooks.append(hook)
 
+
+    # -- fault-injection seam ---------------------------------------------
+    def _fault_check(self, point: str, **ctx) -> None:
+        """Consult the bound fault checker at a named failure point.
+        No-op without one; with one, a scheduled fault raises here and
+        propagates through the same error handling a real failure at
+        this point would take."""
+        if self.faults is not None:
+            self.faults.check(point, now=self._rate_clock(), **ctx)
     # -- telemetry -------------------------------------------------------
     def _note_step(self, live: int, *,
                    launched_at: Optional[float] = None) -> None:

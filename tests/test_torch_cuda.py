@@ -5,8 +5,10 @@ requantizing entries, K1 on both its routes (dp4a for int8 dots, the
 CUDA cores' multiply-add for int32 ones) — the launch contract, and
 the slices on the card against the JAX reference's golden outputs: the
 serving path (K1–K3), the per-plane path (``ConvBlock.apply``,
-``cnn_forward_loop``, ``validate_plan``: K3–K6) and the LM path (K7,
-K8: ``prefill``, ``decode_step`` and the ``Engine``).
+``cnn_forward_loop``, ``validate_plan``: K3–K6), the LM path (K7,
+K8: ``prefill``, ``decode_step`` and the ``Engine``), and the persistent
+cache's kernel libraries (a corrupt one quarantined and rebuilt; a warm
+start in a fresh process that builds nothing).
 Every test here carries the ``cuda`` marker and skips without a card;
 this file imports no JAX, so it also runs where JAX is not installed:
 
@@ -349,6 +351,104 @@ def test_gateway_on_card_matches_golden(cuda):
     assert forwards == 1 and gw.stats()["served"] == len(gx)
     assert [fn.launches - b for fn, b in zip(counters, before)] \
         == [1, 1, 1, 0, 0]
+
+
+def _golden_params(device):
+    plan = runtime.load_plan(PINNED)
+    with np.load(GOLDEN) as z:
+        weights = [z[f"{PINNED.stem}.w{i}"] for i in range(3)]
+        gx, gy = z[f"{PINNED.stem}.x"], z[f"{PINNED.stem}.y"]
+    return plan, convert.params_from_numpy(
+        weights, deploy.plan_config(plan), device), gx, gy
+
+
+def test_cache_quarantines_and_rebuilds_a_corrupt_library(cuda, tmp_path):
+    """A persistent cache on the card builds the pinned plan's three
+    kernel libraries into ``<cache_dir>/kernels``; a library overwritten
+    with garbage is quarantined as ``*.corrupt`` and rebuilt when the
+    next cache makes its launches from disk, and the goldens stay
+    exact."""
+    from repro_torch.kernels import build
+    from repro_torch.ops import PersistentExecutableCache
+    plan, params, gx, gy = _golden_params(cuda)
+    cold = PersistentExecutableCache(tmp_path)
+    model = runtime.CompiledCNN.from_plan(plan, params=params, device=cuda,
+                                          max_batch=8, exec_cache=cold)
+    kdir = tmp_path / "kernels"
+    libs = {"conv1_layer", "fused_dot_layer", "packed_dot_layer"}
+    assert all(build.verified(n, kdir) for n in libs)
+    assert np.array_equal(model(gx).cpu().numpy(), gy)
+    lib = build.library_path("packed_dot_layer", kdir)
+    junk = lib.with_name("junk")          # replaced, not written over:
+    junk.write_bytes(b"\x00garbage")      # this process may map the old
+    junk.replace(lib)
+    runs = build.nvcc_runs
+    warm = PersistentExecutableCache(tmp_path)
+    again = runtime.CompiledCNN.from_plan(plan, params=params, device=cuda,
+                                          max_batch=8, exec_cache=warm)
+    assert warm.stats()["compiles"] == 0 and build.nvcc_runs == runs + 1
+    assert lib.with_name(lib.name + ".corrupt").read_bytes() \
+        == b"\x00garbage"
+    assert build.verified("packed_dot_layer", kdir)
+    assert np.array_equal(again(gx).cpu().numpy(), gy)
+
+
+def test_warm_start_in_a_fresh_process_on_card(cuda, tmp_path):
+    """A gateway built from a warm ``StoreRoot`` in a fresh process runs
+    no ``nvcc``, prepares nothing, binds every kernel library from the
+    root's ``exec-cache/kernels`` and serves the goldens exactly."""
+    import json
+    import subprocess
+    import sys
+    from repro_torch.chaos import respawn_gateway
+    from repro_torch.ops import StoreRoot
+    plan, _, gx, gy = _golden_params(cuda)
+    root = StoreRoot(tmp_path)
+    root.plans.save(plan, "cnn")
+    cold = respawn_gateway(root, "a", ["cnn"], AsyncServeConfig(max_batch=8),
+                           device="cuda")
+    assert cold.exec_cache.stats()["compiles"] > 0
+    cold.lease.release()
+    np.save(tmp_path / "gx.npy", gx)
+    code = f"""
+import asyncio, json, sys
+import numpy as np
+from repro_torch import convert
+from repro_torch.chaos import respawn_gateway
+from repro_torch.core import deploy
+from repro_torch.kernels import build
+from repro_torch.ops import StoreRoot
+from repro_torch.serve import AsyncServeConfig
+root = StoreRoot({str(tmp_path)!r})
+plan = root.plans.load("cnn")
+with np.load({str(GOLDEN)!r}) as z:
+    weights = [z["{PINNED.stem}.w" + str(i)] for i in range(3)]
+params = convert.params_from_numpy(weights, deploy.plan_config(plan), "cuda")
+gw = respawn_gateway(root, "c", ["cnn"], AsyncServeConfig(max_batch=8),
+                     device="cuda", params={{"cnn": params}})
+gx = np.load({str(tmp_path / "gx.npy")!r})
+async def main():
+    async with gw:
+        return await asyncio.gather(*[gw.submit_nowait(x) for x in gx])
+np.save({str(tmp_path / "out.npy")!r}, np.stack(asyncio.run(main())))
+gw.lease.release()
+print(json.dumps({{"nvcc_runs": build.nvcc_runs,
+                  "cache": gw.exec_cache.stats(),
+                  "bound": {{k: str(v) for k, v in build.bound_paths().items()}}}}))
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600, check=True,
+                         env={**__import__("os").environ,
+                              "PYTHONPATH": str(SRC.parent)})
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["nvcc_runs"] == 0 and res["cache"]["compiles"] == 0
+    assert res["cache"]["disk_hits"] == 3 * 4
+    assert set(res["bound"]) == {"conv1_layer", "fused_dot_layer",
+                                 "packed_dot_layer"}
+    kdir = (root.exec_cache_dir / "kernels").resolve()
+    assert all(Path(p).resolve().parent == kdir
+               for p in res["bound"].values())
+    assert np.array_equal(np.load(tmp_path / "out.npy"), gy)
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 4, 8, 16, 17])

@@ -78,6 +78,12 @@ SLICE_MODULES = (
     # slice 8: the async gateway and the ops modules it reports into
     "repro_torch.serve.async_engine", "repro_torch.ops.tracker",
     "repro_torch.ops.store",
+    # slice 9: the fleet, fault injection and durable state
+    "repro_torch.ops.cache", "repro_torch.ops.root",
+    "repro_torch.chaos.plan", "repro_torch.chaos.inject",
+    "repro_torch.chaos.recovery", "repro_torch.fleet.health",
+    "repro_torch.fleet.router", "repro_torch.fleet.worker",
+    "repro_torch.fleet.fleet", "repro_torch.fleet.sim",
 )
 
 
