@@ -142,9 +142,34 @@ order (any mismatch or error raises and the exit code is non-zero):
    prefill at full width cut to 4 layers on the card (kernels) against
    the same parameters on the CPU (plain versions), relative L2 error of
    the logits under 5e-2;
-11. one JSON line ``{"kernels": [...]}`` (with the fleet and recovery
-   results under ``"fleet"`` and ``"recovery"``), the nvidia-smi line,
-   and last ``{"ok": true, "device": {...}}``.
+11. the quantized MoE workload (no kernel of its own: the expert
+   products are ``torch.bmm`` in float32, TF32 off): the JAX reference's
+   golden smoke Qwen3-MoE plan (``golden/moe_reference.npz``) on its
+   weights at max_batch 4 — each layer of each bucket (1, 2, 4) on the
+   reference's input to it within atol 1e-4 and relative L2 1e-5 of the
+   reference's output; then served through ``CNNEngine`` and through one
+   ``AsyncCNNGateway`` that also serves ``quickstart_v5e`` on its golden
+   weights (the counters set to 0 just before and read just after: K1's
+   requantizing entry launched for the CNN plan), in the golden's
+   dispatches, every served block equal to the port's own layer trace of
+   that dispatch and within atol 1e-4 (relative L2 1e-5) of the golden,
+   or moved off it only by a fake-quant rounding flip (a value on a
+   rounding boundary, found and printed), the CNN outputs exact, a MoE
+   block refused on the CNN plan and an image on the MoE plan; then the
+   full-width Qwen3-MoE-30B-A3B experts (2 layers, 32 tokens a block,
+   d_model 2048, 128 experts, top 8, 768 wide) planned for ``v5e`` with
+   fallback, compiled at max_batch 16 from a seeded draw on the card,
+   equal to ``_eager_forward`` at every bucket (rtol = atol = 1e-5), the
+   relative error against ``moe_layer_dense_ref``, one forward under
+   ``torch.cuda.set_sync_debug_mode("error")``, ms per step at bucket 16
+   by CUDA events, device ms, ops and idle share per step from a
+   profiler trace, tokens/s through ``CNNEngine`` for 256 blocks, and
+   the expert products' device time against their bound, each with the
+   card's name and power limit;
+12. one JSON line ``{"kernels": [...]}`` (with the fleet and recovery
+   results under ``"fleet"`` and ``"recovery"``, the MoE workload's
+   under ``"moe"``), the nvidia-smi line, and last ``{"ok": true,
+   "device": {...}}``.
 
 It exits non-zero without a result where ``torch.cuda.is_available()``
 is false, or where the port's sources are not beside it.
@@ -285,6 +310,17 @@ K8_BF16_TOL = dict(rtol=2 ** -7, atol=1e-3)
 # K8's float32 instantiation against its plain version: the same blocked
 # online softmax, products summed in another order
 K8_F32_TOL = dict(rtol=2e-5, atol=2e-5)
+# the MoE phase: the JAX reference's golden smoke plan served at max_batch
+# 4 in its dispatches (buckets 1, 2, 4, 1), held at atol 1e-4 and a
+# relative L2 of 1e-5; then the full-width Qwen3-MoE-30B-A3B experts at
+# max_batch 16, compiled against eager at 1e-5 (validate_moe_plan's)
+MOE_GOLDEN = ROOT / "src" / "repro_torch" / "golden" / "moe_reference.npz"
+MOE_GOLDEN_MAX_BATCH = 4
+MOE_DISPATCHES = ((0, 1), (1, 3), (3, 7), (7, 8))
+MOE_ATOL, MOE_REL_L2 = 1e-4, 1e-5
+MOE_EAGER_TOL = dict(rtol=1e-5, atol=1e-5)
+MOE_ARCH, MOE_MAX_BATCH, MOE_SEED = "qwen3-moe-30b-a3b", 16, 24
+MOE_TIMED_BLOCKS, MOE_PROFILED_STEPS = 256, 8
 # the numbers of a timed case that its kernel's headline entry carries
 TIMES = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
          "library_ms", "library_device_ms")
@@ -2133,6 +2169,380 @@ def lm_plain_vs_kernel(entries):
     return out
 
 
+def _moe_trace(compiled, xb):
+    """The activations of one bucketed dispatch of the numpy blocks
+    ``xb`` through ``compiled``'s own prepared (layer, bucket) launches,
+    on its device: ``[x, after layer 0, ..., output]`` as numpy."""
+    import numpy as np
+    import torch
+    n = xb.shape[0]
+    bucket = compiled.bucket_for(n)
+    act = torch.from_numpy(np.concatenate(
+        [xb, np.zeros((bucket - n,) + xb.shape[1:], np.float32)])) \
+        .to(compiled.device)
+    acts = [np.asarray(xb)]
+    for i in range(compiled.num_layers):
+        act = compiled._compile_layer(i, bucket)(compiled.params[i], act)
+        acts.append(act.cpu().numpy()[:n])
+    return acts
+
+
+def _rel_l2(a, b):
+    import numpy as np
+    return float(np.linalg.norm((a - b).ravel())
+                 / max(np.linalg.norm(b.ravel()), 1e-30))
+
+
+def _moe_against_golden(label, acts, golden_acts, bits):
+    """End to end against the golden: the blocks no flip moved within
+    MOE_ATOL and MOE_REL_L2; returns the numbers for the JSON line."""
+    import numpy as np
+    from repro_torch.runtime.workloads import fake_quant_flips
+    flips = fake_quant_flips(acts, golden_acts, bits, atol=MOE_ATOL)
+    keep = [r for r in range(len(acts[-1])) if r not in {f[0] for f in flips}]
+    y, g = acts[-1][keep], golden_acts[-1][keep]
+    err, rel = float(np.abs(y - g).max()), _rel_l2(y, g)
+    if rel > MOE_REL_L2:
+        raise AssertionError(f"{label}: relative L2 {rel} > {MOE_REL_L2}")
+    allrel = _rel_l2(acts[-1], golden_acts[-1])
+    print(f"[moe golden] {label}: {len(keep)} of {len(acts[-1])} blocks "
+          f"within atol {MOE_ATOL} (max_abs_err {err:.3e}, relative L2 "
+          f"{rel:.3e}); {len(flips)} moved by a fake-quant rounding flip "
+          f"[block, layer, token, channel]: {flips}; relative L2 over all "
+          f"8 blocks {allrel:.3e}")
+    return {"max_abs_err": err, "rel_l2": rel, "rel_l2_all": allrel,
+            "flips": flips}
+
+
+def moe_golden_on_card(entries, smi):
+    """Phase 11, golden: the JAX reference's smoke MoE plan on its
+    weights, layer by layer, through ``CNNEngine`` and through one
+    gateway beside the quickstart CNN plan."""
+    import asyncio
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.core import deploy
+    from repro_torch.launch import serve
+    from repro_torch.runtime import (CompiledMoE, ExecutableCache,
+                                     load_plan, moe_plan_spec)
+    from repro_torch.serve import (AsyncCNNGateway, AsyncServeConfig,
+                                   CNNEngine, CNNServeConfig, ImageRequest)
+
+    with np.load(MOE_GOLDEN) as z:
+        plan = deploy.DeploymentPlan.from_json(str(z["plan"]))
+        spec = moe_plan_spec(plan)
+        arrays = [{k.split("/")[-1]: z[k] for k in z.files
+                   if k.startswith(f"params/L{i}/")}
+                  for i in range(len(spec.layers))]
+        xs, golden_acts = z["x"], list(z["layer_in"]) + [z["y"]]
+    params = convert.moe_params_from_numpy(arrays, spec, "cuda")
+    bits = [s.data_bits for s in spec.layers]
+    compiled = CompiledMoE(spec, params, max_batch=MOE_GOLDEN_MAX_BATCH,
+                           device="cuda")
+
+    # each layer at each bucket on the reference's input to it
+    layer_err, layer_rel = 0.0, 0.0
+    for lo, hi in MOE_DISPATCHES:
+        bucket = compiled.bucket_for(hi - lo)
+        for i in range(compiled.num_layers):
+            x = golden_acts[i][lo:hi]
+            xp = torch.from_numpy(np.concatenate(
+                [x, np.zeros((bucket - len(x),) + x.shape[1:],
+                             np.float32)])).cuda()
+            y = compiled._compile_layer(i, bucket)(compiled.params[i], xp) \
+                .cpu().numpy()[:len(x)]
+            want = golden_acts[i + 1][lo:hi]
+            err, rel = float(np.abs(y - want).max()), _rel_l2(y, want)
+            if err > MOE_ATOL or rel > MOE_REL_L2:
+                raise AssertionError(
+                    f"moe golden layer {i} at bucket {bucket}: "
+                    f"max_abs_err {err}, relative L2 {rel}")
+            layer_err, layer_rel = max(layer_err, err), max(layer_rel, rel)
+    print(f"[moe golden] each layer at buckets 1, 2, 4 on the reference's "
+          f"input: max_abs_err {layer_err:.3e}, relative L2 "
+          f"{layer_rel:.3e} (tolerance {MOE_ATOL}, {MOE_REL_L2})")
+    traces = [_moe_trace(compiled, xs[lo:hi]) for lo, hi in MOE_DISPATCHES]
+    acts = [np.concatenate(layer) for layer in zip(*traces)]
+    res = {"layers": {"max_abs_err": layer_err, "rel_l2": layer_rel}}
+
+    def served_equal_trace(label, ys):
+        err = float(np.abs(np.stack(ys) - acts[-1]).max())
+        if err > 1e-6:
+            raise AssertionError(f"{label}: served blocks differ from the "
+                                 f"layer trace of the same dispatches by "
+                                 f"{err}")
+        return err
+
+    # the sync engine, one golden dispatch per run
+    engine = CNNEngine(serve_cfg=CNNServeConfig(
+        max_batch=MOE_GOLDEN_MAX_BATCH), compiled=compiled)
+    reqs = [ImageRequest(image=x, request_id=i) for i, x in enumerate(xs)]
+
+    def run_engine():
+        for lo, hi in MOE_DISPATCHES:
+            engine.run(reqs[lo:hi])
+        return [r.output for r in reqs]
+    ys = drive(entries, "moe golden engine", set(), run_engine)
+    served_equal_trace("moe golden engine", ys)
+    res["engine"] = _moe_against_golden("CNNEngine", acts, golden_acts, bits)
+
+    # one gateway: the quickstart CNN plan (K1) beside the MoE plan
+    cnn_path = PLANS / f"{UNPINNED}.json"
+    cnn_plan = load_plan(cnn_path)
+    gw = AsyncCNNGateway(AsyncServeConfig(max_batch=MOE_GOLDEN_MAX_BATCH,
+                                          max_pending=32),
+                         exec_cache=ExecutableCache())
+    gw.register_plan(cnn_plan, plan_id="cnn", device="cuda",
+                     params=serve.load_params(
+                         GOLDEN, cnn_path, deploy.plan_config(cnn_plan),
+                         "cuda"))
+    gw.register_plan(plan, plan_id="moe", device="cuda", params=params)
+    with np.load(GOLDEN) as golden:
+        gx, gy = golden[f"{UNPINNED}.x"], golden[f"{UNPINNED}.y"]
+
+    async def both():
+        async with gw:
+            moe_out, cnn_out = [], []
+            for k, (lo, hi) in enumerate(MOE_DISPATCHES):
+                # one loop turn admits the whole dispatch
+                futs = [gw.submit_nowait(xs[r], plan_id="moe")
+                        for r in range(lo, hi)]
+                cfuts = [gw.submit_nowait(gx[2 * k + j], plan_id="cnn")
+                         for j in range(2)]
+                moe_out += await asyncio.gather(*futs)
+                cnn_out += await asyncio.gather(*cfuts)
+            refused = []
+            for x, pid in ((xs[0], "cnn"), (gx[0], "moe")):
+                try:
+                    await gw.submit(x, plan_id=pid)
+                except ValueError as e:
+                    refused.append(str(e).split(":")[1].strip()[:40])
+            return moe_out, cnn_out, refused
+
+    label = "moe gateway beside cnn"
+    moe_out, cnn_out, refused = drive(
+        entries, label, {"fused_dot_layer_requant"},
+        lambda: asyncio.run(both()))
+    hits = dict(gw.plans["moe"].compiled.bucket_hits)
+    if hits != {1: 2, 2: 1, 4: 1}:
+        raise AssertionError(f"{label}: MoE dispatches {hits}, want the "
+                             f"golden's buckets 1, 2, 4, 1")
+    cnn_forwards = sum(gw.plans["cnn"].compiled.bucket_hits.values())
+    _check_serve_launches(label, {UNPINNED: cnn_forwards})
+    if not np.array_equal(np.stack(cnn_out), gy):
+        raise AssertionError(f"{label}: the CNN outputs differ from the JAX "
+                             f"reference's golden")
+    if len(refused) != 2:
+        raise AssertionError(f"{label}: admission refused {refused}, want "
+                             f"a MoE block on the CNN plan and an image on "
+                             f"the MoE plan")
+    served_equal_trace(label, moe_out)
+    res["gateway"] = _moe_against_golden("gateway beside quickstart_v5e",
+                                         acts, golden_acts, bits)
+    res["gateway"].update({"moe_bucket_hits": hits,
+                           "cnn_forwards": cnn_forwards,
+                           "refused": refused})
+    print(f"[moe golden] gateway: {len(cnn_out)} CNN outputs equal the JAX "
+          f"golden beside the MoE plan; refused {refused}; on {smi}")
+    return res
+
+
+def _expert_bound(e, cap, d, f):
+    """(bound_ms, bound_by) of a layer's three expert products
+    (e × cap × d by e × d × f twice, then e × cap × f by e × f × d), float32:
+    the buffer and the three weights read once, the output written once,
+    against 2·e·cap·d·f multiply-adds per product at the float32 rate."""
+    nbytes = 4 * (e * cap * d + 3 * e * d * f + e * cap * d)
+    flops = 3 * 2 * e * cap * d * f
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations"), flops
+
+
+def moe_full_width(entries, smi):
+    """Phase 11, full width: the Qwen3-MoE-30B-A3B experts planned for
+    ``v5e``, compiled at max_batch 16 on the card, against eager at every
+    bucket, under sync-debug mode, then timed.  Returns the numbers."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.runtime import (CompiledMoE, moe_plan_spec,
+                                     moe_workload_from_config,
+                                     plan_moe_deployment)
+    from repro_torch.runtime.workloads import (_dense_ref_forward,
+                                               _eager_forward, _rel_rmse)
+    from repro_torch.serve import CNNEngine, CNNServeConfig, ImageRequest
+
+    if torch.backends.cuda.matmul.allow_tf32 \
+            or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("TF32 is on: the MoE path runs full float32")
+    spec = moe_workload_from_config(get_config(MOE_ARCH))
+    t0 = time.perf_counter()
+    plan = plan_moe_deployment(
+        spec, "v5e", target=0.8, on_infeasible="fallback",
+        generator=torch.Generator(device="cuda").manual_seed(MOE_SEED))
+    plan_s = time.perf_counter() - t0
+    pspec = moe_plan_spec(plan)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    compiled = CompiledMoE.from_plan(
+        plan, generator=torch.Generator(device="cuda").manual_seed(MOE_SEED),
+        max_batch=MOE_MAX_BATCH, device="cuda")
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    weight_gb = sum(t.numel() * t.element_size() for p in compiled.params
+                    for t in p.values()) / 1e9
+    print(f"[moe full width] {MOE_ARCH} experts: {json.dumps(spec.to_payload())}"
+          f"; v5e plan feasible {plan.feasible}, bits {plan.bits()}, "
+          f"quant_error {plan.quant_error:.6f} (planned in {plan_s:.2f} s); "
+          f"compiled at max_batch {MOE_MAX_BATCH} in {compile_s:.2f} s, "
+          f"{weight_gb:.3f} GB of float32 weights")
+
+    rng = np.random.default_rng(MOE_SEED)
+    blocks = rng.standard_normal((MOE_MAX_BATCH,) + compiled.in_shape) \
+        .astype(np.float32)
+    xd = torch.from_numpy(blocks).cuda()
+    per_bucket = {}
+    for b in compiled.buckets:
+        y = compiled(xd[:b])
+        ye = _eager_forward(pspec, compiled.params, xd[:b])
+        err = float((y - ye).abs().max())
+        if not torch.allclose(y, ye, **MOE_EAGER_TOL):
+            raise AssertionError(f"moe full width bucket {b}: compiled "
+                                 f"differs from eager by {err}")
+        per_bucket[b] = err
+    float_params = pspec.init_params(
+        torch.Generator(device="cuda").manual_seed(MOE_SEED),
+        quantized=False)
+    dense_rel = _rel_rmse(_eager_forward(pspec, compiled.params, xd[:1]),
+                          _dense_ref_forward(pspec, float_params, xd[:1]))
+    del float_params
+    torch.cuda.empty_cache()
+    print(f"[moe full width] compiled vs _eager_forward max_abs_err by "
+          f"bucket {per_bucket} (rtol = atol = 1e-5); dense_ref_rel_err "
+          f"{dense_rel:.6f}")
+
+    # no host sync inside a forward
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        compiled(xd)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print("[moe full width] one forward at bucket 16 under "
+          "set_sync_debug_mode('error'): no host sync")
+
+    n_tok = MOE_MAX_BATCH * compiled.in_shape[0]
+    step_ms = time_ms(lambda: compiled(xd), 20)
+    compiled(xd)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(MOE_PROFILED_STEPS):
+            compiled(xd)
+        torch.cuda.synchronize()
+    by_name, n_ops = {}, 0
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CPU and ev.device_time_total > 0:
+            by_name[ev.name] = by_name.get(ev.name, 0.0) \
+                + ev.device_time_total
+            n_ops += 1
+    profile_res = None
+    if by_name:
+        busy = sum(by_name.values()) / 1e3 / MOE_PROFILED_STEPS
+        gemm = sum(v for k, v in by_name.items() if "gemm" in k.lower()) \
+            / 1e3 / MOE_PROFILED_STEPS
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        profile_res = {
+            "device_ms_per_step": busy, "gemm_ms_per_step": gemm,
+            "device_ops_per_step": n_ops / MOE_PROFILED_STEPS,
+            "idle_share": 1.0 - busy / step_ms,
+            "top_ms_per_step": [[k[:80], v / 1e3 / MOE_PROFILED_STEPS]
+                                for k, v in top]}
+    else:
+        print("[moe full width] the trace holds no device time: not "
+              "measured")
+
+    # the expert products of one layer at bucket 16, alone
+    m = pspec.layers[0]
+    cap = moe_mod._capacity(m.capacity_factor, n_tok, m.top_k,
+                            m.num_experts)
+    d, f = pspec.d_model, m.d_ff_expert
+    buf = torch.randn(m.num_experts, cap, d, device="cuda")
+    p0 = compiled.params[0]
+
+    def products():
+        h = torch.bmm(buf, p0["w_up"])
+        torch.bmm(buf, p0["w_gate"])
+        return torch.bmm(h, p0["w_down"])
+    bound_ms, bound_by, flops = _expert_bound(m.num_experts, cap, d, f)
+    bmm = {"shape": [m.num_experts, cap, d, f], "capacity": cap,
+           "ms": time_ms(products, 20), "device_ms": device_ms(products,
+                                                                iters=10),
+           "ffn_device_ms": device_ms(
+               lambda: moe_mod._expert_ffn(buf, p0, pspec.act), iters=10),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "gflop": flops / 1e9}
+    if bmm["device_ms"] is not None and bmm["device_ms"] < bound_ms:
+        # less than the least time the card could take: the trace lost
+        # events, so the reading is not a measurement
+        print(f"[moe full width] the expert products' trace reads "
+              f"{bmm['device_ms']} ms, below their bound: not measured")
+        bmm["device_ms_lost_events"], bmm["device_ms"] = \
+            bmm["device_ms"], None
+    if bmm["device_ms"]:
+        bmm["tflop_per_s"] = flops / bmm["device_ms"] / 1e9
+    del buf
+
+    # 256 blocks through the sync engine at max_batch 16
+    engine = CNNEngine(serve_cfg=CNNServeConfig(max_batch=MOE_MAX_BATCH),
+                       compiled=compiled)
+    xs = compiled.sample_inputs(MOE_TIMED_BLOCKS, seed=MOE_SEED)
+    engine.run([ImageRequest(image=x, request_id=i)
+                for i, x in enumerate(xs[:MOE_MAX_BATCH])])   # warm-up
+
+    steps0 = engine.stats()["steps"]
+
+    def serve_blocks():
+        reqs = [ImageRequest(image=x, request_id=i)
+                for i, x in enumerate(xs)]
+        t0 = time.perf_counter()
+        engine.run(reqs)
+        return reqs, time.perf_counter() - t0
+    reqs, dt = drive(entries, "moe full width engine", set(), serve_blocks)
+    outs = np.stack([r.output for r in reqs])
+    if not (all(r.done for r in reqs) and np.isfinite(outs).all()):
+        raise AssertionError("moe full width: a block was not served whole")
+    res = {"arch": MOE_ARCH, "spec": spec.to_payload(),
+           "feasible": plan.feasible, "bits": plan.bits(),
+           "quant_error": plan.quant_error, "plan_s": plan_s,
+           "compile_s": compile_s, "weight_gb": weight_gb,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "eager_max_abs_err": per_bucket,
+           "dense_ref_rel_err": dense_rel, "sync_free_forward": True,
+           "ms_per_step_bucket16": step_ms,
+           "tokens_per_s_bare": n_tok / step_ms * 1e3,
+           "profile": profile_res, "expert_products": bmm,
+           "engine_blocks": MOE_TIMED_BLOCKS, "engine_s": dt,
+           "engine_steps": engine.stats()["steps"] - steps0,
+           "engine_tokens_per_s": MOE_TIMED_BLOCKS * compiled.in_shape[0]
+           / dt, "card": smi}
+    print(f"[moe full width] bucket 16 ({n_tok} tokens, capacity {cap}): "
+          f"{step_ms:.6f} ms per step (CUDA events), "
+          f"{res['tokens_per_s_bare']:.1f} tokens/s; profile "
+          f"{json.dumps(profile_res)}; expert products of one layer "
+          f"{json.dumps(bmm)}; CNNEngine {MOE_TIMED_BLOCKS} blocks in "
+          f"{dt:.4f} s, {res['engine_tokens_per_s']:.1f} tokens/s; on {smi}")
+    del engine, compiled
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--warm-start":
         # the recovery phase's fresh process (``_warm_start_process``)
@@ -2201,6 +2611,8 @@ def main() -> int:
         lm_golden(entries)
         lm = lm_full_width(entries)
         lm_cut = lm_plain_vs_kernel(entries)
+        moe = {"golden": moe_golden_on_card(entries, smi),
+               "full_width": moe_full_width(entries, smi)}
         keys = ("name", "route", "source", "replaces", "launches",
                 "max_abs_err", "equal") + TIMES + (
                 "shape", "launches_by_path", "cases")
@@ -2214,6 +2626,7 @@ def main() -> int:
                 "gateway": gateway, "fleet": fleet, "recovery": recovery,
                 "lm_k7_per_mamba_layer": entries["causal_conv1d"]["per_layer"],
                 "lm_full_width": lm, "lm_cut_plain_vs_kernel": lm_cut,
+                "moe": moe,
                 "int32_ops_per_s": int32_rate(), "card": smi}
         print(json.dumps(line))
         print(smi)

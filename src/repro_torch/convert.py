@@ -1,10 +1,11 @@
-"""Carry the reference's CNN and LM parameters across to the port.
+"""Carry the reference's CNN, LM and MoE parameters across to the port.
 
 The port draws weights from a ``torch.Generator``, which cannot
 reproduce ``jax.random``; where both sides must compute the same thing,
 the reference's weights come across as numpy arrays (for example
-``[np.asarray(w) for w in repro.core.cnn.init_cnn(key, cfg)]``, or the
-LM parameter pytree as nested dicts of ``np.asarray`` leaves).
+``[np.asarray(w) for w in repro.core.cnn.init_cnn(key, cfg)]``, the LM
+parameter pytree as nested dicts of ``np.asarray`` leaves, or an MoE
+workload's per-layer parameter dicts).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 from repro_torch.core.cnn import CNNConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.conv2d import container_dtype
-from repro_torch.models import transformer
+from repro_torch.models import moe, transformer
 
 
 def params_from_numpy(arrays: Sequence, cfg: CNNConfig,
@@ -90,6 +91,40 @@ def lm_params_from_numpy(tree: Mapping, cfg,
         return t.to(device=dev, dtype=spec.dtype)
 
     return convert(tree, want, "params")
+
+
+def moe_params_from_numpy(arrays: Sequence[Mapping], spec,
+                          device: DeviceLike = "cuda") -> List[Dict]:
+    """The port's per-layer MoE parameters for the workload ``spec``
+    (a ``runtime.MoEWorkloadSpec``) from the reference's per-layer
+    parameter dicts of numpy arrays (float32), on ``device``.  Every
+    layer's keys and every array's shape are checked against the
+    port's ``init_moe`` for that layer.  Raises on a wrong layer count,
+    a missing, extra or misshapen array, or another dtype."""
+    dev = resolve_device(device)
+    if len(arrays) != len(spec.layers):
+        raise ValueError(f"need one parameter dict per layer: "
+                         f"{len(arrays)} dicts for {len(spec.layers)} "
+                         f"layers")
+    out = []
+    for i, layer in enumerate(arrays):
+        want = moe.init_moe(None, spec.layer_cfg(i))     # shapes on meta
+        if not isinstance(layer, Mapping) or set(layer) != set(want):
+            got = sorted(layer) if isinstance(layer, Mapping) else layer
+            raise ValueError(f"layer {i}: keys {got} != {sorted(want)}")
+        params = {}
+        for k, spec_t in want.items():
+            where = f"layer {i}.{k}"
+            t = _leaf_tensor(layer[k], where)
+            if t.dtype != torch.float32:
+                raise ValueError(f"{where}: expected float32, got "
+                                 f"{t.dtype}")
+            if tuple(t.shape) != tuple(spec_t.shape):
+                raise ValueError(f"{where}: shape {tuple(t.shape)} != "
+                                 f"{tuple(spec_t.shape)}")
+            params[k] = t.to(dev)
+        out.append(params)
+    return out
 
 
 def nested_from_flat(arrays: Mapping, prefix: str, sep: str = "/") -> Dict:

@@ -156,7 +156,8 @@ class DeploymentPlan:
     def from_json(cls, text: str) -> "DeploymentPlan":
         """Parse a versioned plan payload.  v2 is the native schema; v1
         payloads (the CNN-only era) upgrade in place.  A workload kind
-        the port does not serve yet raises ``NotImplementedError``."""
+        the reference serves and the port does not yet raises
+        ``NotImplementedError``; an unknown kind ``ValueError``."""
         from repro_torch.runtime import workloads as _wl
         payload = json.loads(text)
         version = payload.get("version")

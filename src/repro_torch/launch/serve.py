@@ -1,5 +1,6 @@
 """Serving launcher of the port: the synchronous, async and fleet CNN
-paths and the LM path of ``repro.launch.serve``, on the card.
+paths, the synchronous and async MoE paths and the LM path of
+``repro.launch.serve``, on the card.
 
   # plan the quickstart CNN for a catalog device, then serve the plan
   PYTHONPATH=src python -m repro_torch.launch.serve --workload cnn \\
@@ -30,6 +31,14 @@ paths and the LM path of ``repro.launch.serve``, on the card.
       [--router plan_aware|least_loaded|round_robin] [--drain] [--seed 1] \
       [--cache-dir DIR | --store-root DIR] [--torch-device cuda|cpu]
 
+  # the quantized MoE workload: plan smoke_config(--arch)'s experts
+  # (plan_moe_deployment), then serve token blocks through the same
+  # engine, or the gateway with --async
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload moe \\
+      --requests 32 --max-batch 8 [--device v5e] [--arch qwen3-moe-30b-a3b] \\
+      [--save-plan moe_plan.json] [--async --occupancy 2.0] \\
+      [--torch-device cuda|cpu]
+
   # serve a zoo LM (its reduced "smoke" config, as the reference does)
   PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \\
       [--arch llama3.2-3b] --requests 6 --prompt-len 16 --new-tokens 24 \\
@@ -52,12 +61,20 @@ an ``ops.PersistentExecutableCache`` there (kernel libraries under
 both (plans under ``DIR/plans``, the cache under ``DIR/exec-cache``);
 ``--metrics-out FILE`` streams lifecycle events and periodic stats
 snapshots there as JSON lines (``ops.JsonlTracker``), on every path.
+``--workload moe`` plans ``moe_workload_from_config(smoke_config(--arch))``
+(``--arch`` defaults to ``qwen3-moe-30b-a3b`` there) for ``--device`` at
+target 0.8 with fallback, or serves ``--plan`` or the plan stored under
+``moe-<--device>`` with ``--plan-store``; its weights are a seeded draw
+(``CompiledMoE.from_plan``).  With ``--cache-dir`` its prepared layers
+stay in memory (they launch none of the port's kernels), so a restart
+prepares them again without building anything.
 ``--workload lm`` serves ``smoke_config(--arch)`` with parameters drawn
 from a generator seeded with 0 and prompts from ``numpy``'s
 ``default_rng(0)``, through ``serve_lm``, which takes any
 ``ModelConfig`` (the full-width configs too).  Prints what the
 reference's ``run_cnn``, ``run_cnn_async`` and ``run_lm`` print, with
-the device's name; ``--fleet`` prints what the reference's
+the device's name, and ``run_moe``, ``run_moe_async`` what theirs
+print; ``--fleet`` prints what the reference's
 ``run_cnn_fleet`` prints, with latency from each request's scheduled
 arrival, and walks the arrivals with one producer.
 """
@@ -82,7 +99,8 @@ from repro_torch.device import device_name, resolve_device
 from repro_torch.models import build_model
 from repro_torch.ops import (JsonlTracker, PersistentExecutableCache,
                              PlanStore, StatsSampler, StoreRoot)
-from repro_torch.runtime import load_plan, save_plan
+from repro_torch.runtime import (load_plan, moe_workload_from_config,
+                                 plan_moe_deployment, save_plan)
 from repro_torch.runtime.compiled import dtype_name
 from repro_torch.serve import (AsyncCNNGateway, AsyncServeConfig,
                                CNNEngine, CNNServeConfig, DeadlineExpired,
@@ -213,6 +231,36 @@ def cnn_plan(args) -> deploy.DeploymentPlan:
     return plan
 
 
+def moe_plan(args) -> deploy.DeploymentPlan:
+    """Load the MoE plan artifact ``--plan``, or the one ``--plan-store``
+    holds under ``moe-<--device>``, or plan
+    ``moe_workload_from_config(smoke_config(--arch))`` for ``--device``
+    (target 0.8, fallback); ``--save-plan`` writes the plan served."""
+    def compute():
+        spec = moe_workload_from_config(smoke_config(args.arch))
+        return plan_moe_deployment(spec, args.device, target=0.8,
+                                   on_infeasible="fallback")
+
+    if args.plan:
+        plan = load_plan(args.plan)
+        kind = plan.workload.kind if plan.workload is not None else "cnn"
+        print(f"[serve] loaded plan artifact {args.plan!r} "
+              f"(planned for device {plan.device.name}, "
+              f"workload {kind!r})")
+    elif args.plan_store:
+        plan = _plan_from_store(args, "moe", compute)
+    else:
+        plan = compute()
+    if args.save_plan:
+        save_plan(plan, args.save_plan)
+        print(f"[serve] plan artifact saved to {args.save_plan!r}")
+    print(f"[serve] plan for {plan.device.name}: "
+          + ", ".join(f"L{a.index}={a.block}@d{a.data_bits}/c{a.coeff_bits}"
+                      for a in plan.layers)
+          + f"  (quant rel-err {plan.quant_error:.4f})")
+    return plan
+
+
 def _plan_params(args, plan, device):
     """The ``--params`` weights of ``plan``, or None (a seeded draw)."""
     if not args.params:
@@ -252,6 +300,52 @@ def run_cnn(args) -> Tuple[CNNEngine, List[ImageRequest], float]:
           f"bucket hits: {stats['bucket_hits']}")
     _ops_finish(tracker, sampler, cache)
     return engine, reqs, dt
+
+
+def run_moe(args) -> Tuple[CNNEngine, List[ImageRequest], float]:
+    """Serve ``args.requests`` sample token blocks from the MoE plan
+    (``moe_plan``) through the same ``CNNEngine`` as the CNN path
+    (``CNNEngine.from_plan`` dispatches on the plan's workload kind);
+    returns the engine, the served requests and the serving seconds."""
+    device = resolve_device(args.torch_device)
+    plan = moe_plan(args)
+    cache = _ops_cache(args)
+    tracker = _ops_tracker(args)
+    t0 = time.perf_counter()
+    engine = CNNEngine.from_plan(
+        plan, serve_cfg=CNNServeConfig(max_batch=args.max_batch),
+        device=device, exec_cache=cache)
+    sampler = _ops_sampler(tracker, {"engine": engine.stats})
+    compiled = engine.compiled
+    print(f"[serve] AOT warmup: {len(compiled.buckets)} buckets × "
+          f"{compiled.num_layers} MoE layers compiled in "
+          f"{time.perf_counter() - t0:.2f}s (off the serving critical path)")
+
+    reqs = [ImageRequest(image=x, request_id=i) for i, x in
+            enumerate(compiled.sample_inputs(args.requests))]
+    t0 = time.perf_counter()
+    engine.run(reqs)
+    dt = time.perf_counter() - t0
+    stats = engine.stats()
+    seq_len = compiled.in_shape[0]
+    print(f"[serve] {len(reqs)} token blocks ({len(reqs) * seq_len} "
+          f"tokens) in {dt:.2f}s ({len(reqs) * seq_len / dt:.0f} tok/s, "
+          f"{stats['images_per_step']:.1f} blocks/step) on "
+          f"{device_name(device)}")
+    print(f"[serve] occupancy histogram: {stats['occupancy_hist']}  "
+          f"bucket hits: {stats['bucket_hits']}")
+    _ops_finish(tracker, sampler, cache)
+    return engine, reqs, dt
+
+
+def run_moe_async(args, *, keep_every: int = 0
+                  ) -> Tuple[AsyncCNNGateway, dict]:
+    """The async gateway serving MoE token blocks from ``moe_plan``
+    under plan id ``moe``: the driver of ``run_cnn_async``, which is
+    plan-type-blind (``blocks_per_s`` in place of ``images_per_s``)."""
+    device = resolve_device(args.torch_device)
+    return _serve_async(args, moe_plan(args), None, device, plan_id="moe",
+                        unit="blocks", keep_every=keep_every)
 
 
 _STAGES = ("to_task", "stack", "hop_in", "forward", "hop_back", "finish")
@@ -303,6 +397,18 @@ def run_cnn_async(args, *, keep_every: int = 0
     scheduled one."""
     device = resolve_device(args.torch_device)
     plan = cnn_plan(args)
+    return _serve_async(args, plan, _plan_params(args, plan, device),
+                        device, plan_id="plan0", unit="images",
+                        keep_every=keep_every)
+
+
+def _serve_async(args, plan, params, device: torch.device, *, plan_id: str,
+                 unit: str, keep_every: int
+                 ) -> Tuple[AsyncCNNGateway, dict]:
+    """The driver of ``run_cnn_async`` and ``run_moe_async``: ``plan``
+    registered under ``plan_id`` in one gateway, Poisson arrivals from
+    one producer; ``unit`` names a request in the printed rates and in
+    the result's ``<unit>_per_s``."""
     cache = _ops_cache(args)
     tracker = _ops_tracker(args)
     t0 = time.perf_counter()
@@ -313,13 +419,13 @@ def run_cnn_async(args, *, keep_every: int = 0
                                max_pending=args.max_pending,
                                max_inflight=args.max_inflight,
                                wait_budget_s=wait_budget),
-        params=_plan_params(args, plan, device), device=device,
-        exec_cache=cache, tracker=tracker)
+        plan_id=plan_id, params=params, device=device, exec_cache=cache,
+        tracker=tracker)
     gw.stage_log = []
     sampler = _ops_sampler(tracker, {"gateway": gw.stats})
-    compiled = gw.plans["plan0"].compiled
+    compiled = gw.plans[plan_id].compiled
     print(f"[serve] AOT warmup: {len(compiled.buckets)} buckets × "
-          f"{len(compiled.cfg.layers)} layers compiled in "
+          f"{compiled.num_layers} layers compiled in "
           f"{time.perf_counter() - t0:.2f}s (shared exec cache: "
           f"{len(gw.exec_cache)} executables)")
 
@@ -337,7 +443,7 @@ def run_cnn_async(args, *, keep_every: int = 0
     step_s = time.perf_counter() - t0
     rate = args.occupancy * args.max_batch / step_s
     print(f"[serve] full-batch step {step_s * 1e3:.2f}ms → offered load "
-          f"{rate:.0f} images/s (occupancy {args.occupancy:g})")
+          f"{rate:.0f} {unit}/s (occupancy {args.occupancy:g})")
 
     deadline = args.deadline_ms / 1e3 if args.deadline_ms else None
     rng = np.random.default_rng(1)
@@ -389,9 +495,9 @@ def run_cnn_async(args, *, keep_every: int = 0
     lag_ms = np.asarray(lags) * 1e3
     print(f"[serve] {stats['served']} served / {shed} shed / "
           f"{stats['expired']} expired of {args.requests} in {wall:.2f}s "
-          f"({stats['served'] / wall:.1f} images/s) on "
+          f"({stats['served'] / wall:.1f} {unit}/s) on "
           f"{device_name(device)}")
-    print(f"[serve] arrivals offered at {achieved:.0f} images/s of the "
+    print(f"[serve] arrivals offered at {achieved:.0f} {unit}/s of the "
           f"{rate:.0f} scheduled (producer lag p50 "
           f"{np.percentile(lag_ms, 50):.2f}ms, max {lag_ms.max():.2f}ms), "
           f"admission {admit_s / args.requests * 1e6:.1f}us per request")
@@ -406,7 +512,7 @@ def run_cnn_async(args, *, keep_every: int = 0
              f"{stats['wait_budget_s'] * 1e3:.0f}ms)"
              if stats['wait_budget_s'] else " (static)"))
     print(f"[serve] measured service rate "
-          f"{stats['service_rate']:.0f} images/s, est wait "
+          f"{stats['service_rate']:.0f} {unit}/s, est wait "
           f"{stats['est_wait'] * 1e3:.1f}ms, shed at bound: "
           f"{stats['shed']}")
     stages = _stage_summary(gw.stage_log, args.max_batch, wall)
@@ -429,7 +535,7 @@ def run_cnn_async(args, *, keep_every: int = 0
            "producer_lag_p50_ms": float(np.percentile(lag_ms, 50)),
            "producer_lag_max_ms": float(lag_ms.max()),
            "admission_us": admit_s / args.requests * 1e6,
-           "images_per_s": stats["served"] / wall, **pct,
+           f"{unit}_per_s": stats["served"] / wall, **pct,
            "service_rate": stats["service_rate"],
            "occupancy_hist": stats["occupancy_hist"],
            "max_pending": stats["max_pending"], **stages}
@@ -710,15 +816,18 @@ def run_lm(args) -> Tuple[Engine, List[Request], float]:
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
-        description="Serve a CNN deployment plan or a zoo LM through "
-                    "repro_torch.")
-    ap.add_argument("--workload", choices=("cnn", "lm"), default="cnn",
-                    help="cnn (the default) or lm")
-    ap.add_argument("--arch", default="llama3.2-3b",
-                    help="zoo architecture (lm)")
+        description="Serve a CNN or quantized-MoE deployment plan or a zoo "
+                    "LM through repro_torch.")
+    ap.add_argument("--workload", choices=("cnn", "lm", "moe"),
+                    default="cnn", help="cnn (the default), lm or moe")
+    ap.add_argument("--arch", default=None,
+                    help="zoo architecture (lm: any; moe: one with MoE "
+                         "blocks; default llama3.2-3b / "
+                         "qwen3-moe-30b-a3b)")
     ap.add_argument("--plan", default=None,
                     help="DeploymentPlan JSON artifact to serve (default: "
-                         "plan the quickstart CNN for --device)")
+                         "plan the quickstart CNN, or --arch's experts, "
+                         "for --device)")
     ap.add_argument("--device", default="v5e",
                     help="catalog device profile to plan for (edge, v5e, "
                          "v5p)")
@@ -777,19 +886,25 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "PersistentExecutableCache): warm restarts make "
                          "their launches from DIR's records and load the "
                          "kernel libraries under DIR/kernels instead of "
-                         "preparing and building (cnn, all paths)")
+                         "preparing and building (all paths)")
     ap.add_argument("--plan-store", default=None, metavar="DIR",
                     help="durable plan repository (repro_torch.ops."
                          "PlanStore): load the plan from DIR if present, "
-                         "else plan once and save it (cnn)")
+                         "else plan once and save it (cnn, moe)")
     ap.add_argument("--metrics-out", default=None, metavar="FILE",
                     help="stream lifecycle events and periodic stats "
                          "snapshots to FILE as JSON lines "
                          "(repro_torch.ops.JsonlTracker; all paths)")
     args = ap.parse_args(argv)
+    if args.arch is None:
+        args.arch = ("qwen3-moe-30b-a3b" if args.workload == "moe"
+                     else "llama3.2-3b")
     if args.params and not args.plan:
         ap.error("--params names weights by the --plan file's stem; "
                  "pass --plan with it")
+    if args.workload == "moe" and (args.params or args.fleet):
+        ap.error("--workload moe serves a seeded weight draw from one "
+                 "gateway or engine; drop --params and --fleet")
     if args.store_root and (args.plan_store or args.cache_dir):
         ap.error("--store-root replaces --plan-store and --cache-dir; "
                  "give one or the other")
@@ -804,6 +919,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     _apply_store_root(args)
     if args.workload == "lm":
         run_lm(args)
+    elif args.workload == "moe":
+        run_moe_async(args) if args.async_ else run_moe(args)
     elif args.fleet:
         run_cnn_fleet(args)
     elif args.async_:

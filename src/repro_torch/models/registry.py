@@ -3,8 +3,8 @@
 Port of ``repro.models.registry`` for inference: ``Model`` (``init``,
 ``init_cache``, ``prefill``, ``decode_step``) and ``build_model``.  The
 dry-run helpers ``init_abstract``, ``cache_abstract`` and
-``input_specs`` wait for the multi-device slice (ROADMAP item 11), and
-``forward_train`` for the training slice (item 10).
+``input_specs`` wait for ROADMAP's multi-device and analysis item, and
+``forward_train`` for its LM-zoo and training item.
 """
 
 from __future__ import annotations

@@ -14,9 +14,10 @@ leaves lead with ``n_cycles``.  ``decode_step`` writes each layer's new
 K/V and SSM state into the cache it is given, in place (the reference
 returns an updated copy), and returns the same dictionary.
 
-An MoE MLP (ROADMAP item 9), an encoder-decoder or a modality frontend
-(item 10) raises ``NotImplementedError``; ``forward_train`` waits for
-the training slice.
+An MoE MLP raises ``NotImplementedError``: the MoE layer itself is
+ported (``models.moe``, served by the MoE workload), but its place in
+the LM waits for ROADMAP's LM-zoo item, as do an encoder-decoder and a
+modality frontend; ``forward_train`` waits for the training slice.
 """
 
 from __future__ import annotations
@@ -38,11 +39,12 @@ def check_supported(cfg) -> None:
     """Raise for what this slice of the port does not run yet."""
     if any(sub.mlp == MOE for sub in cfg.layer_cycle):
         raise NotImplementedError(
-            f"{cfg.name}: MoE MLPs are not ported yet (ROADMAP item 9)")
+            f"{cfg.name}: the MoE layer is ported (repro_torch.models.moe) "
+            f"but an LM's MoE MLP is not yet (ROADMAP: the LM-zoo item)")
     if cfg.enc_dec or cfg.frontend is not None:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models and modality frontends are "
-            f"not ported yet (ROADMAP item 10)")
+            f"not ported yet (ROADMAP: the LM-zoo item)")
 
 
 # ---------------------------------------------------------------------------

@@ -32,9 +32,11 @@ Guarantees:
   ``PlanCorrupt`` naming the quarantined path; the store itself stays
   healthy.
 * **A plan of a workload kind the port does not serve yet is left in
-  place.** A store may be shared with the reference package, which
-  serves more kinds (``moe``): ``load`` raises ``PlanUnsupported`` and
-  the artifact stays live, for the package that can serve it.
+  place.** A store may be shared with the reference package, and both
+  now serve the same kinds (``cnn`` and ``moe``); should the reference
+  gain a kind the port lacks (``runtime.workloads._NOT_YET_PORTED``),
+  ``load`` raises ``PlanUnsupported`` and the artifact stays live, for
+  the package that can serve it.
 * **Retire is terminal but auditable.** ``load`` of a retired id raises
   ``PlanRetired`` (a ``KeyError`` subclass) rather than silently
   resurrecting it; the artifact remains under ``retired/``.
@@ -83,8 +85,9 @@ class PlanCorrupt(PlanStoreError):
 
 
 class PlanUnsupported(PlanStoreError):
-    """The artifact is a well-formed plan of a workload kind this
-    package does not serve yet; it was left where it is."""
+    """The artifact is a well-formed plan of a workload kind the
+    reference serves and this package does not yet; it was left where
+    it is."""
 
 
 class PlanStore:

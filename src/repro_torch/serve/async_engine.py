@@ -545,9 +545,10 @@ class AsyncCNNGateway(SlotPool):
                       compiled: Optional[CompiledModel] = None) -> str:
         """Route ``plan`` through this gateway: the plan's
         ``WorkloadSpec`` builds the compiled backend on ``device``
-        (``runtime.compile_plan``; ``cuda`` without a card raises).  A
-        workload kind the port does not serve yet (``moe``) raises
-        ``NotImplementedError`` here, never inside a dispatch.  All
+        (``runtime.compile_plan``; ``cuda`` without a card raises): a
+        ``cnn`` or a ``moe`` plan.  A workload kind the port does not
+        serve yet raises ``NotImplementedError`` here, and an unknown
+        one ``ValueError``, never inside a dispatch.  All
         registered plans prepare into the gateway's shared
         ``ExecutableCache`` — layers that coincide across plans (same
         block/bits/geometry/device) reuse one prepared launch per

@@ -980,17 +980,31 @@ def test_async_serve_config_validation_and_pool_sizing():
 
 def test_register_plan_refuses_unported_kind_and_missing_card(
         plan, monkeypatch):
-    """A workload kind the port does not serve yet raises at
-    registration, never in a dispatch; ``cuda`` without a card raises;
-    a compiled model narrower than the slot pool is refused."""
-    class _MoESpec:
-        kind = "moe"
+    """A still-unknown workload kind raises at registration, never in a
+    dispatch (``ValueError``, or ``NotImplementedError`` for a kind the
+    reference serves and the port does not yet), and a ``moe`` plan now
+    registers; ``cuda`` without a card raises; a compiled model
+    narrower than the slot pool is refused."""
+    from repro_torch.runtime import workloads
 
-    moe = dataclasses.replace(plan, workload=_MoESpec())
+    class _RnnSpec:
+        kind = "rnn"
+
+    rnn = dataclasses.replace(plan, workload=_RnnSpec())
     gw = AsyncCNNGateway(AsyncServeConfig(max_batch=2))
-    with pytest.raises(NotImplementedError, match="moe"):
-        gw.register_plan(moe, device="cpu")
+    with pytest.raises(ValueError, match="unknown workload kind 'rnn'"):
+        gw.register_plan(rnn, device="cpu")
+    with monkeypatch.context() as m:
+        m.setitem(workloads._NOT_YET_PORTED, "rnn", "a recurrent workload")
+        with pytest.raises(NotImplementedError, match="'rnn'.*not yet"):
+            gw.register_plan(rnn, device="cpu")
     assert gw.plans == {}
+    layer = workloads.MoELayerSpec(d_ff_expert=16, num_experts=4, top_k=2)
+    moe = workloads.plan_moe_deployment(
+        workloads.MoEWorkloadSpec(layers=(layer,), d_model=8, seq_len=8),
+        "v5e")
+    assert gw.register_plan(moe, plan_id="moe", device="cpu") == "moe"
+    assert gw.plans["moe"].kind == "moe"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         AsyncCNNGateway.from_plan(plan)

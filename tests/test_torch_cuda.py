@@ -6,7 +6,9 @@ CUDA cores' multiply-add for int32 ones) — the launch contract, and
 the slices on the card against the JAX reference's golden outputs: the
 serving path (K1–K3), the per-plane path (``ConvBlock.apply``,
 ``cnn_forward_loop``, ``validate_plan``: K3–K6), the LM path (K7,
-K8: ``prefill``, ``decode_step`` and the ``Engine``), and the persistent
+K8: ``prefill``, ``decode_step`` and the ``Engine``), the quantized MoE
+workload (no kernel of its own: layer by layer against the golden, the
+bucketed forward against eager, no host sync), and the persistent
 cache's kernel libraries (a corrupt one quarantined and rebuilt; a warm
 start in a fresh process that builds nothing).
 Every test here carries the ``cuda`` marker and skips without a card;
@@ -41,6 +43,7 @@ UNPINNED = SRC / "plans" / "quickstart_v5e.json"
 PINNED = SRC / "plans" / "quickstart_v5e_conv1_conv3.json"
 GOLDEN = SRC / "golden" / "quickstart_reference.npz"
 LM_GOLDEN = SRC / "golden" / "lm_reference.npz"
+MOE_GOLDEN = SRC / "golden" / "moe_reference.npz"
 
 KERNELS = {"conv1_layer": (conv2d.conv1_layer, conv2d.conv1_layer_plain),
            "fused_dot_layer": (base.fused_dot_layer,
@@ -745,3 +748,36 @@ def test_lm_on_card_matches_golden(cuda, arch):
                                       max_new_tokens=5)).run(reqs)
     assert [r.out_tokens for r in reqs] == g[f"{arch}/engine_tokens"] \
         .tolist()
+
+
+def test_moe_on_card_matches_golden_and_syncs_nothing(cuda):
+    """The golden smoke MoE plan on the card: each layer at buckets 1, 2
+    and 4 on the JAX reference's input to it within 1e-4 of the
+    reference's output, the bucketed forward equal to the unbucketed
+    stack, and a forward that never waits for the card."""
+    from repro_torch.runtime.workloads import _eager_forward
+    with np.load(MOE_GOLDEN) as z:
+        plan = deploy.DeploymentPlan.from_json(str(z["plan"]))
+        spec = runtime.moe_plan_spec(plan)
+        params = convert.moe_params_from_numpy(
+            [{k.split("/")[-1]: z[k] for k in z.files
+              if k.startswith(f"params/L{i}/")}
+             for i in range(len(spec.layers))], spec, "cuda")
+        acts = list(z["layer_in"]) + [z["y"]]
+    model = runtime.CompiledMoE(spec, params, max_batch=4, device="cuda")
+    for lo, hi in ((0, 1), (1, 3), (3, 7)):
+        bucket = model.bucket_for(hi - lo)
+        for i in range(model.num_layers):
+            y = model._compile_layer(i, bucket)(
+                model.params[i], torch.from_numpy(acts[i][lo:hi]).cuda())
+            np.testing.assert_allclose(y.cpu().numpy(), acts[i + 1][lo:hi],
+                                       rtol=1e-5, atol=1e-4)
+    x = torch.from_numpy(acts[0][:4]).cuda()
+    assert torch.equal(model(x), _eager_forward(spec, model.params, x))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model(x)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()

@@ -30,6 +30,16 @@ of the whole batch, the logits of three teacher-forced decode steps
 ``<arch>/decode_pos``), and the reference ``Engine``'s greedy tokens for
 4 numpy-made requests (``<arch>/engine_prompts`` → ``engine_tokens``).
 
+``src/repro_torch/golden/moe_reference.npz`` holds the reference's MoE
+plan for ``moe_workload_from_config(smoke_config("qwen3-moe-30b-a3b"))``
+on ``v5e`` (target 0.8, fallback; ``plan``, its JSON), the per-layer
+parameters of ``CompiledMoE.from_plan``'s default draw (``PRNGKey(0)``,
+flat under ``params/L<i>/<name>``), the 8 token blocks of
+``sample_inputs(8, seed=0)`` (``x``), and the reference ``CompiledMoE``'s
+activations for them at max_batch 4, dispatched as ``MOE_DISPATCHES``
+so that buckets 1, 2 and 4 all run: each layer's input (``layer_in``,
+(layers, 8, 32, 64)) and the outputs (``y``).
+
 The card is held against the JAX package through these files, without
 importing it.  Regenerate all of them (the reference's planner and this
 file run the reference's resource sweep, about a minute without its
@@ -52,8 +62,10 @@ from repro.configs import smoke_config
 from repro.core import allocate, deploy, synth
 from repro.core.cnn import fitted_block_models, quickstart_cnn_config
 from repro.models import build_model
-from repro.runtime import CompiledCNN
+from repro.runtime import (CompiledCNN, CompiledMoE, moe_workload_from_config,
+                           plan_moe_deployment)
 from repro.serve import Engine, Request, ServeConfig
+from torch_parity import dispatch_trace
 
 ROOT = Path(__file__).resolve().parents[1]
 PLANS = ROOT / "src" / "repro_torch" / "plans"
@@ -62,6 +74,11 @@ SYNTH_REFERENCE = ROOT / "src" / "repro_torch" / "golden" \
     / "synth_reference.json"
 SYNTH_GOLDEN = ROOT / "tests" / "golden" / "synth_golden.json"
 LM_GOLDEN = ROOT / "src" / "repro_torch" / "golden" / "lm_reference.npz"
+MOE_GOLDEN = ROOT / "src" / "repro_torch" / "golden" / "moe_reference.npz"
+MOE_ARCH, MOE_MAX_BATCH, MOE_REQUESTS = "qwen3-moe-30b-a3b", 4, 8
+# (start, stop) of each reference dispatch of the golden blocks: buckets
+# 1, 2, then 4 and 1 (five requests chunk into 4 + 1)
+MOE_DISPATCHES = ((0, 1), (1, 3), (3, 8))
 LM_ARCHS = ("llama3.2-3b", "mamba2-1.3b")
 LM_BATCH, LM_SEQ, LM_DECODE_STEPS = 2, 16, 3
 # the reference Engine's requests: prompts of 8 tokens, 5 new tokens each,
@@ -185,6 +202,53 @@ def lm_reference_golden():
     return arrays
 
 
+def moe_reference_plan():
+    """The reference planner's plan of the smoke Qwen3-MoE experts."""
+    return plan_moe_deployment(
+        moe_workload_from_config(smoke_config(MOE_ARCH)), "v5e",
+        target=0.8, on_infeasible="fallback")
+
+
+def moe_reference_golden():
+    """Arrays of the MoE golden npz, computed by the reference's planner
+    and ``CompiledMoE``."""
+    plan = moe_reference_plan()
+    compiled = CompiledMoE.from_plan(plan, max_batch=MOE_MAX_BATCH)
+    arrays = {"plan": np.array(plan.to_json())}
+    for i, p in enumerate(compiled.params):
+        for name, leaf in p.items():
+            arrays[f"params/L{i}/{name}"] = np.asarray(leaf)
+    xs = np.stack(compiled.sample_inputs(MOE_REQUESTS, seed=0))
+    traces = []
+    for lo, hi in MOE_DISPATCHES:
+        for c in range(lo, hi, MOE_MAX_BATCH):
+            traces.append(dispatch_trace(
+                compiled, xs[c:min(c + MOE_MAX_BATCH, hi)], jnp.asarray,
+                np.asarray))
+    acts = [np.concatenate(layer) for layer in zip(*traces)]
+    # the trace is what a served call returns
+    assert np.array_equal(np.asarray(compiled(xs[:1])), acts[-1][:1])
+    arrays["x"] = xs
+    arrays["layer_in"] = np.stack(acts[:-1])
+    arrays["y"] = acts[-1]
+    return arrays
+
+
+def test_moe_golden_rebuilds_from_reference():
+    """The committed MoE golden file is the reference's: plan, weights
+    and blocks exactly, activations within 1e-6 (float32 on the CPU)."""
+    want = moe_reference_golden()
+    with np.load(MOE_GOLDEN) as got:
+        assert sorted(got.files) == sorted(want)
+        for k, v in want.items():
+            assert got[k].dtype == v.dtype and got[k].shape == v.shape, k
+            if k in ("layer_in", "y"):
+                np.testing.assert_allclose(got[k], v, rtol=0, atol=1e-6,
+                                           err_msg=k)
+            else:
+                assert np.array_equal(got[k], v), k
+
+
 def test_lm_golden_rebuilds_from_reference():
     """The committed LM golden file is the reference's: parameters,
     prompts and greedy tokens exactly, logits within 1e-6 (float32 on
@@ -268,10 +332,12 @@ def main():
     np.savez_compressed(GOLDEN, **reference_golden(plans))
     write_synth_reference(synth.run_sweep())
     np.savez_compressed(LM_GOLDEN, **lm_reference_golden())
+    np.savez_compressed(MOE_GOLDEN, **moe_reference_golden())
     print(f"wrote {len(plans)} plans to {PLANS}, {GOLDEN} "
           f"({GOLDEN.stat().st_size} bytes), {SYNTH_REFERENCE} "
-          f"({SYNTH_REFERENCE.stat().st_size} bytes) and {LM_GOLDEN} "
-          f"({LM_GOLDEN.stat().st_size} bytes)")
+          f"({SYNTH_REFERENCE.stat().st_size} bytes), {LM_GOLDEN} "
+          f"({LM_GOLDEN.stat().st_size} bytes) and {MOE_GOLDEN} "
+          f"({MOE_GOLDEN.stat().st_size} bytes)")
 
 
 if __name__ == "__main__":

@@ -84,6 +84,9 @@ SLICE_MODULES = (
     "repro_torch.chaos.recovery", "repro_torch.fleet.health",
     "repro_torch.fleet.router", "repro_torch.fleet.worker",
     "repro_torch.fleet.fleet", "repro_torch.fleet.sim",
+    # slice 10: the quantized MoE workload
+    "repro_torch.models.moe", "repro_torch.runtime.workloads",
+    "repro_torch.configs.qwen3_moe_30b_a3b",
 )
 
 

@@ -382,21 +382,30 @@ def test_schema_violation_is_corrupt_not_crash(tmp_path):
         store.load("vX")
 
 
-def test_unported_workload_kind_is_corrupt_not_crash(tmp_path):
-    """A plan of a workload kind the port does not serve yet (``moe``),
-    written by the reference into a shared store, is not corrupt: the
-    port raises ``PlanUnsupported`` and leaves it live, the reference
-    still loads it, and nothing is quarantined."""
+def test_unported_workload_kind_is_corrupt_not_crash(tmp_path, monkeypatch):
+    """A ``moe`` plan the reference wrote into a shared store now loads
+    in the port, equal to the reference's JSON.  A plan of a kind the
+    reference serves and the port does not yet is still not corrupt:
+    the port raises ``PlanUnsupported`` and leaves it live, and nothing
+    is quarantined."""
+    from repro_torch.runtime import workloads
     layer = ref_runtime.MoELayerSpec(d_ff_expert=16, num_experts=4, top_k=2)
     spec = ref_runtime.MoEWorkloadSpec(layers=(layer,) * 2, d_model=8,
                                        seq_len=8)
     moe = ref_runtime.plan_moe_deployment(spec, "v5e")
     ref_ops.PlanStore(tmp_path).save(moe, "moe-v5e")
     store = PlanStore(tmp_path)
+    loaded = store.load("moe-v5e")
+    assert loaded.to_json() == moe.to_json()
+    assert loaded.workload.kind == "moe"
+    monkeypatch.setitem(workloads._NOT_YET_PORTED, "rnn",
+                        "a recurrent workload")
+    store.path_for("rnn-v5e").write_text(
+        moe.to_json().replace('"kind": "moe"', '"kind": "rnn"'))
     with pytest.raises(PlanUnsupported, match="not yet"):
-        store.load("moe-v5e")
-    assert store.path_for("moe-v5e").exists()
-    assert store.list_plans() == ["moe-v5e"]
+        store.load("rnn-v5e")
+    assert store.path_for("rnn-v5e").exists()
+    assert store.list_plans() == ["moe-v5e", "rnn-v5e"]
     assert list((tmp_path / "quarantine").iterdir()) == []
     assert ref_ops.PlanStore(tmp_path).load("moe-v5e").to_json() \
         == moe.to_json()

@@ -1,13 +1,15 @@
 """The port's plan artifact (``repro_torch.core.deploy`` and
 ``repro_torch.runtime.plan_io``/``workloads``) held against the
 reference's: byte-equal JSON round-trips of the golden fixtures and of
-the port's committed plans, the v1 upgrade, and the MoE kind refused
-until it is ported."""
+the port's committed plans, the v1 upgrade, and the MoE plan read,
+round-tripped and compiled."""
 
 import dataclasses
 from pathlib import Path
 
+import numpy as np
 import pytest
+import torch
 
 from repro.core import deploy as ref_deploy
 from repro_torch import runtime
@@ -48,10 +50,21 @@ def test_v1_plan_upgrades_to_the_v2_plan():
 
 
 def test_moe_plan_is_not_yet_ported():
+    """The name dates from before the MoE workload was ported: the
+    reference's MoE golden plan now loads in the port, its ``to_json()``
+    is byte-identical to the file, and it compiles on the CPU."""
     text = (TESTS / "golden" / "plan_moe_golden.json").read_text()
-    ref_deploy.DeploymentPlan.from_json(text)          # the reference reads
-    with pytest.raises(NotImplementedError, match="'moe'.*not yet ported"):
-        deploy.DeploymentPlan.from_json(text)
+    theirs = ref_deploy.DeploymentPlan.from_json(text)
+    mine = deploy.DeploymentPlan.from_json(text)
+    assert mine.to_json() + "\n" == text == theirs.to_json() + "\n"
+    assert mine.workload.to_payload() == theirs.workload.to_payload()
+    compiled = runtime.compile_plan(mine, max_batch=2, device="cpu")
+    assert isinstance(compiled, runtime.CompiledMoE)
+    assert [(s.data_bits, s.coeff_bits) for s in compiled.spec.layers] \
+        == mine.bits() == [(8, 8), (6, 4)]
+    y = compiled(np.stack(compiled.sample_inputs(3, seed=0)))
+    assert tuple(y.shape) == (3,) + compiled.in_shape
+    assert bool(torch.isfinite(y).all())
 
 
 def test_unknown_schema_and_kind_raise_like_reference():
@@ -89,8 +102,9 @@ def test_plan_io_save_load_round_trip(tmp_path):
 
 
 def test_workload_registry():
-    assert runtime.list_workloads() == ["cnn"]
+    assert runtime.list_workloads() == ["cnn", "moe"]
     assert runtime.get_workload("cnn") is runtime.CNNWorkloadSpec
+    assert runtime.get_workload("moe") is runtime.MoEWorkloadSpec
     with pytest.raises(ValueError, match="unknown workload kind"):
         runtime.get_workload("rnn")
     plan = runtime.load_plan(FIXTURES["quickstart_v5e"])

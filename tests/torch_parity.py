@@ -1,8 +1,9 @@
 """Shared helpers of the port's parity tests (``tests/test_torch_*.py``):
 numpy-made operands handed to both packages, a narrow network built in
-either package, and the ``cuda`` fixture that skips a card test where
-there is no card (decided inside the test, never at import, so every
-xdist worker collects the same tests)."""
+either package, the layer-by-layer trace of a bucketed MoE dispatch,
+and the ``cuda`` fixture that skips a
+card test where there is no card (decided inside the test, never at
+import, so every xdist worker collects the same tests)."""
 
 import numpy as np
 import pytest
@@ -37,6 +38,23 @@ def narrow_config(module):
         module.ConvLayerSpec(3, 3, data_bits=6, coeff_bits=4, shift=5,
                              block="conv3"),
     ), img_h=16, img_w=24)
+
+
+def dispatch_trace(compiled, xb, to_backend, to_numpy):
+    """The activations of one bucketed dispatch of ``xb`` (n ≤ max_batch
+    numpy requests) through either package's ``CompiledModel``, layer
+    by layer with its own prepared (layer, bucket) executables: ``[x,
+    after layer 0, ..., output]``, each (n, ...) as numpy."""
+    n = xb.shape[0]
+    bucket = compiled.bucket_for(n)
+    act = to_backend(np.concatenate(
+        [xb, np.zeros((bucket - n,) + xb.shape[1:], xb.dtype)]))
+    acts = [np.asarray(xb)]
+    for i in range(compiled.num_layers):
+        act = compiled._compile_layer(i, bucket)(compiled._layer_params(i),
+                                                 act)
+        acts.append(to_numpy(act)[:n])
+    return acts
 
 
 @pytest.fixture
