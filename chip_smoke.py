@@ -166,10 +166,35 @@ order (any mismatch or error raises and the exit code is non-zero):
    profiler trace, tokens/s through ``CNNEngine`` for 256 blocks, and
    the expert products' device time against their bound, each with the
    card's name and power limit;
-12. one JSON line ``{"kernels": [...]}`` (with the fleet and recovery
+12. the rest of the LM zoo (K7, K8): Qwen3-MoE, Llama-4-Maverick,
+   Jamba, Whisper and Pixtral at ``smoke_config`` in float32 against the
+   JAX reference's golden file ``src/repro_torch/golden/
+   lm_zoo_reference.npz`` (logits within 2e-3, the MoE archs' greedy
+   engine tokens equal, two identical prompts in one wave among them; K8
+   once per attention layer per prefill and never in decode, K7 three
+   times per Jamba Mamba layer per call); then Qwen3-MoE-30B-A3B at full
+   width and depth (48 layers, 61 GB of bf16 weights from a seeded
+   generator) through the launcher's ``serve_lm`` with phase 10's
+   traffic after a one-layer warm-up, the counters set to 0 just before
+   and read just after (K8 48 times per prefill, never in decode):
+   prefill ms per request, decode ms per step, tokens/s, peak memory, a
+   profiler trace of 16 decode steps (device ms, idle share, device ops
+   per step, against the step's byte bound), one decode step under
+   ``set_sync_debug_mode("error")`` and one layer's expert products at
+   the decode shape against their byte bound; then full-width cuts —
+   Qwen3-MoE at 4 layers, Llama-4-Maverick at one cycle (2 layers),
+   Whisper-medium (24 + 24 layers, 1500 numpy-made frames) and
+   Pixtral-12B (40 layers, 256 numpy-made patches) whole — each prefill
+   on K8 against the same prefill with K8's plain version and decode at
+   position S−1 against a prefill over S positions (the MoE capacity
+   raised), relative L2 of the logits within 5e-2; then K8
+   bf16 against its plain version at the zoo's shapes (1, 512, 32, 128)
+   kv 4 and (1, 512, 16, 64) kv 16, timed as in phase 10; each part's
+   seconds printed;
+13. one JSON line ``{"kernels": [...]}`` (with the fleet and recovery
    results under ``"fleet"`` and ``"recovery"``, the MoE workload's
-   under ``"moe"``), the nvidia-smi line, and last ``{"ok": true,
-   "device": {...}}``.
+   under ``"moe"``, the LM zoo's under ``"lm_zoo"``), the nvidia-smi
+   line, and last ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a result where ``torch.cuda.is_available()``
 is false, or where the port's sources are not beside it.
@@ -321,6 +346,21 @@ MOE_ATOL, MOE_REL_L2 = 1e-4, 1e-5
 MOE_EAGER_TOL = dict(rtol=1e-5, atol=1e-5)
 MOE_ARCH, MOE_MAX_BATCH, MOE_SEED = "qwen3-moe-30b-a3b", 16, 24
 MOE_TIMED_BLOCKS, MOE_PROFILED_STEPS = 256, 8
+# the LM-zoo phase: the five smoke archs against the JAX reference's
+# golden file; Qwen3-MoE-30B-A3B at full width and depth through serve_lm
+# with the LM traffic above; full-width cuts (depth, or None: whole), the
+# prefill on K8 against the plain path and decode against prefill within
+# LM_CUT_REL_L2, the MoE capacity raised to a slot per token for the
+# latter; K8 at the zoo's new shapes (B, S, H, KH, Dh)
+LM_ZOO_GOLDEN = ROOT / "src" / "repro_torch" / "golden" \
+    / "lm_zoo_reference.npz"
+LM_ZOO_ARCHS = ("qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b",
+                "jamba-1.5-large-398b", "whisper-medium", "pixtral-12b")
+ZOO_FULL_ARCH = "qwen3-moe-30b-a3b"
+ZOO_CUTS = (("qwen3-moe-30b-a3b", 4), ("llama4-maverick-400b-a17b", 2),
+            ("whisper-medium", None), ("pixtral-12b", None))
+K8_ZOO_SHAPES = {"qwen3-moe-30b-a3b": (1, 512, 32, 4, 128),
+                 "whisper-medium decoder": (1, 512, 16, 16, 64)}
 # the numbers of a timed case that its kernel's headline entry carries
 TIMES = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
          "library_ms", "library_device_ms")
@@ -1797,7 +1837,7 @@ def check_lm_kernels(entries):
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_config, smoke_config
-    from repro_torch.kernels import conv1d, flash_attention as fa
+    from repro_torch.kernels import conv1d
     from repro_torch.models.ssm import ssm_dims
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1888,51 +1928,65 @@ def check_lm_kernels(entries):
             (1, 300, 24, 8, 128, torch.bfloat16),
             (gb, gs, scfg.n_heads, scfg.n_kv_heads, scfg.head_dim,
              torch.float32)):
-        q, k, v = (torch.randn(b, s, n, d, generator=g, device="cuda")
-                   .to(dtype) for n in (h, kh, kh))
-        bf16 = dtype == torch.bfloat16
-        tol = K8_BF16_TOL if bf16 else K8_F32_TOL
-        kname = "flash_attention_bf16_kernel" if bf16 \
-            else "flash_attention_f32_kernel"
-        out = fa.flash_attention(q, k, v, causal=True)
-        torch.cuda.synchronize()
-        want = fa.flash_attention_plain(q, k, v, causal=True)
-        err = float((out.float() - want.float()).abs().max())
-        label = f"({b},{s},{h},{d}) kv {kh} causal {str(dtype)[6:]}"
-        print(f"  flash_attention {label}: max_abs_err={err}")
-        torch.testing.assert_close(out.float(), want.float(), **tol)
-        e["max_abs_err"] = max(e["max_abs_err"], err)
-        ms = time_ms(lambda: fa.flash_attention(q, k, v), 100, warmup=5)
-        plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v), 10,
-                           warmup=2)
-        dev_ms = device_ms(lambda: fa.flash_attention(q, k, v), kname)
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-
-        def sdpa():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                  enable_gqa=True)
-        lib_ms = time_ms(sdpa, 100, warmup=5)
-        lib_dev_ms = device_ms(sdpa)
-        lib_err = float((sdpa().transpose(1, 2).float() - out.float()).abs()
-                        .max())
-        # the causal half of 4·B·H·S·T·D, bf16 on the tensor cores,
-        # float32 on the CUDA cores
-        b_ms, b_by = _lm_bound(_nbytes(q, k, v, out), 2 * b * h * s * s * d,
-                               BF16_FLOPS_PER_S if bf16 else FP32_FLOPS_PER_S)
-        case = {"shape": [b, s, h, kh, d], "dtype": str(dtype)[6:],
-                "kernel": kname, "ms": ms, "device_ms": dev_ms,
-                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
-                "library_max_abs_diff": lib_err}
-        print(f"    ms={ms:.6f} device_ms={dev_ms} plain_ms={plain_ms:.6f} "
-              f"bound_ms={b_ms:.6f} ({b_by}) library_ms={lib_ms:.6f} "
-              f"library_device_ms={lib_dev_ms} "
-              f"library_max_abs_diff={lib_err}")
-        e["cases"].append(case)
-        if s == 512 or not bf16:
+        case = k8_case(e, g, b, s, h, kh, d, dtype)
+        if s == 512 or dtype == torch.float32:
             e["instantiations"][case["dtype"]] = case
         if s == 512:
             e.update({k_: case[k_] for k_ in TIMES + ("shape",)})
+
+
+def k8_case(e, g, b, s, h, kh, d, dtype):
+    """K8 on (b, s, h, d) queries with kh kv heads, causal, on the card:
+    the kernel against its plain version (``K8_BF16_TOL`` in bf16,
+    ``K8_F32_TOL`` in float32), then timed as phase 3 times a kernel
+    beside ``F.scaled_dot_product_attention``; the case is added to
+    the kernel's entry ``e`` and returned."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = (torch.randn(b, s, n, d, generator=g, device="cuda")
+               .to(dtype) for n in (h, kh, kh))
+    bf16 = dtype == torch.bfloat16
+    tol = K8_BF16_TOL if bf16 else K8_F32_TOL
+    kname = "flash_attention_bf16_kernel" if bf16 \
+        else "flash_attention_f32_kernel"
+    out = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    err = float((out.float() - want.float()).abs().max())
+    label = f"({b},{s},{h},{d}) kv {kh} causal {str(dtype)[6:]}"
+    print(f"  flash_attention {label}: max_abs_err={err}")
+    torch.testing.assert_close(out.float(), want.float(), **tol)
+    e["max_abs_err"] = max(e["max_abs_err"], err)
+    ms = time_ms(lambda: fa.flash_attention(q, k, v), 100, warmup=5)
+    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v), 10,
+                       warmup=2)
+    dev_ms = device_ms(lambda: fa.flash_attention(q, k, v), kname)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    lib_ms = time_ms(sdpa, 100, warmup=5)
+    lib_dev_ms = device_ms(sdpa)
+    lib_err = float((sdpa().transpose(1, 2).float() - out.float()).abs()
+                    .max())
+    # the causal half of 4·B·H·S·T·D, bf16 on the tensor cores, float32
+    # on the CUDA cores
+    b_ms, b_by = _lm_bound(_nbytes(q, k, v, out), 2 * b * h * s * s * d,
+                           BF16_FLOPS_PER_S if bf16 else FP32_FLOPS_PER_S)
+    case = {"shape": [b, s, h, kh, d], "dtype": str(dtype)[6:],
+            "kernel": kname, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
+            "library_max_abs_diff": lib_err}
+    print(f"    ms={ms:.6f} device_ms={dev_ms} plain_ms={plain_ms:.6f} "
+          f"bound_ms={b_ms:.6f} ({b_by}) library_ms={lib_ms:.6f} "
+          f"library_device_ms={lib_dev_ms} "
+          f"library_max_abs_diff={lib_err}")
+    e["cases"].append(case)
+    return case
 
 
 def _lm_golden_params(z, arch, cfg, device):
@@ -1941,57 +1995,126 @@ def _lm_golden_params(z, arch, cfg, device):
         convert.nested_from_flat(z, f"{arch}/params"), cfg, device)
 
 
-def lm_golden(entries):
-    """Phase 10, golden: both smoke archs at float32 on the card against
-    the JAX reference's committed outputs."""
+def _attention_and_mamba_layers(cfg):
+    """(decoder attention sublayers that take K8 in prefill, Mamba
+    sublayers) of ``cfg``: local attention keeps the chunked path."""
+    from repro_torch.configs.base import ATTN, MAMBA
+    return (sum(s.mixer == ATTN for s in cfg.layer_cycle) * cfg.n_cycles,
+            sum(s.mixer == MAMBA for s in cfg.layer_cycle) * cfg.n_cycles)
+
+
+def _frontend_batch(cfg, tokens, rng):
+    """``tokens`` and the numpy-made modality input ``cfg`` takes
+    (``0.1 * standard_normal``, (B, frontend_len, d_model))."""
     import numpy as np
+    batch = {"tokens": tokens}
+    names = (("frames",) if cfg.enc_dec else ()) \
+        + (("patches",) if cfg.frontend == "vision" else ())
+    for name in names:
+        batch[name] = (0.1 * rng.standard_normal(
+            (tokens.shape[0], cfg.frontend_len, cfg.d_model))) \
+            .astype(np.float32)
+    return batch
+
+
+def _pad_attention_cache(cache, n):
     import torch
+    for entry in cache.values():
+        for name in ("k", "v"):
+            if name in entry:
+                entry[name] = torch.nn.functional.pad(entry[name],
+                                                      (0, 0, 0, 0, 0, n))
+    return cache
+
+
+def lm_golden(entries, path, archs, label):
+    """Phases 10 and 12 (a): smoke archs at float32 on the card against
+    the JAX reference's committed outputs in ``path``: logits within
+    LM_GOLDEN_TOL (a vision prefix counted in the decode positions), the
+    greedy engine tokens equal where the file holds them, K8 once per
+    attention layer per prefill and never in decode, K7
+    K7_PER_MAMBA_LAYER times per Mamba layer per call."""
+    import numpy as np
     from repro_torch.configs import smoke_config
+    from repro_torch.kernels import conv1d, flash_attention as fa
     from repro_torch.models import build_model
     from repro_torch.serve import Engine, Request, ServeConfig
 
-    with np.load(LM_GOLDEN) as z:
+    with np.load(path) as z:
         golden = {k: z[k] for k in z.files}
-    for arch in LM_ARCHS:
+    out = {}
+    for arch in archs:
         cfg = smoke_config(arch).with_overrides(dtype="float32")
         model = build_model(cfg, "cuda")
         params = _lm_golden_params(golden, arch, cfg, "cuda")
-        toks = golden[f"{arch}/tokens"]
+        attn, mamba = _attention_and_mamba_layers(cfg)
+        batch = {"tokens": golden[f"{arch}/tokens"]}
+        for name in ("frames", "patches"):
+            if f"{arch}/{name}" in golden:
+                batch[name] = golden[f"{arch}/{name}"]
         pos = golden[f"{arch}/decode_pos"]
-        want = {"flash_attention"} if arch.startswith("llama") \
-            else {"causal_conv1d"}
+        start = batch["tokens"].shape[1] - len(pos)
+        want = ({"flash_attention"} if attn else set()) \
+            | ({"causal_conv1d"} if mamba else set())
+
+        def counted(fn):
+            k7, k8 = conv1d.causal_conv1d.launches, fa.flash_attention.launches
+            res = fn()
+            return res, (fa.flash_attention.launches - k8,
+                         conv1d.causal_conv1d.launches - k7)
 
         def run():
-            errs = []
-            logits, _ = model.prefill(params, {"tokens": toks})
+            errs, calls = [], []
+            (logits, _), n = counted(lambda: model.prefill(params, batch))
+            calls.append(("prefill", n))
             errs.append(np.abs(logits.cpu().numpy()
                                - golden[f"{arch}/prefill_logits"]).max())
-            _, cache = model.prefill(params, {"tokens": toks[:, :pos[0]]})
-            for entry in cache.values():
-                for name in ("k", "v"):
-                    if name in entry:
-                        entry[name] = torch.nn.functional.pad(
-                            entry[name], (0, 0, 0, 0, 0, len(pos)))
+            (_, cache), n = counted(lambda: model.prefill(
+                params, dict(batch, tokens=batch["tokens"][:, :start])))
+            calls.append(("prefill", n))
+            cache = _pad_attention_cache(cache, len(pos))
             for i, p in enumerate(pos):
-                logits, cache = model.decode_step(params, cache,
-                                                  toks[:, p:p + 1], int(p))
+                t = start + i
+                (logits, cache), n = counted(lambda: model.decode_step(
+                    params, cache, batch["tokens"][:, t:t + 1], int(p)))
+                calls.append(("decode", n))
                 errs.append(np.abs(logits.cpu().numpy()
                                    - golden[f"{arch}/decode_logits"][i])
                             .max())
-            reqs = [Request(prompt=[int(t) for t in p], request_id=i)
-                    for i, p in enumerate(golden[f"{arch}/engine_prompts"])]
-            Engine(model, params, ServeConfig(
-                max_batch=2, max_len=32, max_new_tokens=5)).run(reqs)
-            return float(max(errs)), [r.out_tokens for r in reqs]
+            tokens = None
+            if f"{arch}/engine_prompts" in golden:
+                reqs = [Request(prompt=[int(t) for t in p], request_id=i)
+                        for i, p in enumerate(
+                            golden[f"{arch}/engine_prompts"])]
+                Engine(model, params, ServeConfig(
+                    max_batch=2, max_len=32, max_new_tokens=5)).run(reqs)
+                tokens = [r.out_tokens for r in reqs]
+            return float(max(errs)), calls, tokens
 
-        err, tokens = drive(entries, f"lm golden {arch}", want, run)
-        same = tokens == golden[f"{arch}/engine_tokens"].tolist()
-        print(f"[lm golden] {arch} float32 on the card: logits max_abs_err "
-              f"{err:.3e} (tolerance {LM_GOLDEN_TOL}), greedy tokens equal "
-              f"{same}")
+        err, calls, tokens = drive(entries, f"{label} {arch}", want, run)
+        for kind, (k8, k7) in calls:
+            if k8 != (attn if kind == "prefill" else 0) \
+                    or k7 != K7_PER_MAMBA_LAYER * mamba:
+                raise AssertionError(
+                    f"{arch} {kind}: K8 launched {k8} times (want "
+                    f"{attn if kind == 'prefill' else 0}), K7 {k7} (want "
+                    f"{K7_PER_MAMBA_LAYER * mamba})")
+        same = tokens is None \
+            or tokens == golden[f"{arch}/engine_tokens"].tolist()
+        out[arch] = {"max_abs_err": err, "engine_tokens_equal":
+                     None if tokens is None else same,
+                     "k8_per_prefill": attn, "k7_per_call":
+                     K7_PER_MAMBA_LAYER * mamba}
+        print(f"[{label}] {arch} float32 on the card: logits "
+              f"max_abs_err {err:.3e} (tolerance {LM_GOLDEN_TOL}), K8 "
+              f"{attn} per prefill and 0 per decode step, K7 "
+              f"{K7_PER_MAMBA_LAYER * mamba} per call, greedy tokens "
+              f"equal {out[arch]['engine_tokens_equal']}")
         if err > LM_GOLDEN_TOL or not same:
             raise AssertionError(f"{arch}: the card differs from the JAX "
                                  f"golden (err {err}, tokens {tokens})")
+        del params, model
+    return out
 
 
 def lm_decode_profile(model, params, prompts):
@@ -2037,82 +2160,107 @@ def lm_decode_profile(model, params, prompts):
                                 for k, v in top]}
 
 
+def serve_full_width(entries, cfg, label, warm_up):
+    """The launcher's ``serve_lm`` for ``cfg`` at full width, bf16, with
+    the LM traffic, after ``warm_up()`` (untimed), the counters set to 0
+    just before and read just after under ``label``: K8 once per
+    attention layer per prefill and never in decode, K7
+    K7_PER_MAMBA_LAYER times per Mamba layer per prefill and decode step;
+    every request served whole.  Returns (the numbers: times, tokens/s,
+    peak memory, the decode step's byte bound and a decode profile;
+    the engine, which holds the model and its weights)."""
+    import torch
+    from repro_torch.launch import serve
+
+    warm_up()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        t0 = time.perf_counter()
+        engine, reqs, dt = serve.serve_lm(
+            cfg, requests=LM_REQUESTS, prompt_len=LM_PROMPT,
+            new_tokens=LM_NEW, max_batch=LM_MAX_BATCH, device="cuda")
+        # the rest of the call: model build, weight draw, requests
+        return engine, reqs, dt, time.perf_counter() - t0 - dt
+    attn, mamba = _attention_and_mamba_layers(cfg)
+    want = ({"flash_attention"} if attn else set()) \
+        | ({"causal_conv1d"} if mamba else set())
+    engine, reqs, dt, setup_s = drive(entries, label, want, run)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    params = engine.params
+    t = engine.timings()
+    k7 = entries["causal_conv1d"]["launches_by_path"][label]
+    k8 = entries["flash_attention"]["launches_by_path"][label]
+    if k8 != attn * t["prefills"]:
+        raise AssertionError(f"{cfg.name}: flash_attention launched {k8} "
+                             f"times, want {attn} per prefill x "
+                             f"{t['prefills']} and none in decode")
+    if k7 != K7_PER_MAMBA_LAYER * mamba * (t["prefills"]
+                                           + t["decode_steps"]):
+        raise AssertionError(
+            f"{cfg.name}: causal_conv1d launched {k7} times, want "
+            f"{K7_PER_MAMBA_LAYER} per Mamba layer ({mamba}) per prefill "
+            f"and decode step ({t['prefills']} + {t['decode_steps']})")
+    if not all(r.done and len(r.out_tokens) == LM_NEW
+               and all(0 <= x < cfg.vocab_size for x in r.out_tokens)
+               for r in reqs):
+        raise AssertionError(f"{cfg.name}: a request was not served whole")
+    tokens = sum(len(r.out_tokens) for r in reqs)
+    decoded = tokens - t["prefills"]   # each prefill samples one token
+    weight_bytes = sum(x.numel() * x.element_size() for x in _leaves(params))
+    # a decode step reads every weight but the embedding (rows of it)
+    step_bound_ms = (weight_bytes - params["embed"].numel()
+                     * params["embed"].element_size()) \
+        / HBM_BYTES_PER_S * 1e3
+    res = {
+        "params": sum(x.numel() for x in _leaves(params)),
+        "weight_gb": weight_bytes / 1e9,
+        "setup_s": setup_s, "layers": cfg.n_layers,
+        "requests": LM_REQUESTS, "prompt_len": LM_PROMPT,
+        "new_tokens": LM_NEW, "max_batch": LM_MAX_BATCH,
+        "seconds": dt, "tokens_per_s": tokens / dt,
+        "prefills": t["prefills"], "decode_steps": t["decode_steps"],
+        "prefill_ms_per_request": t["prefill_s"] * 1e3 / t["prefills"],
+        "prefill_tokens_per_s": t["prefills"] * LM_PROMPT / t["prefill_s"],
+        "decode_ms_per_step": t["decode_s"] * 1e3 / t["decode_steps"],
+        "decode_tokens_per_s": decoded / t["decode_s"],
+        "decode_step_bound_ms": step_bound_ms,
+        "launches": {"flash_attention": k8, "causal_conv1d": k7},
+        "peak_memory_gb": peak_gb}
+    prof = lm_decode_profile(engine.model, params, [r.prompt for r in reqs])
+    if prof is not None:
+        prof["idle_share"] = 1.0 - prof["device_ms_per_step"] \
+            / res["decode_ms_per_step"]
+        # untraced wall time per device operation the step enqueues
+        prof["wall_us_per_device_op"] = res["decode_ms_per_step"] \
+            * 1e3 / prof["device_ops_per_step"]
+        prof["bound_share"] = step_bound_ms / prof["device_ms_per_step"]
+    res["decode_profile"] = prof
+    return res, engine
+
+
 def lm_full_width(entries):
     """Phase 10, full width: the launcher's ``serve_lm`` for both archs at
-    full width and depth, bf16.  Returns the numbers per arch."""
+    full width and depth, bf16, each after one untimed pass of the same
+    serving.  Returns the numbers per arch."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import ATTN, LOCAL_ATTN, MAMBA
     from repro_torch.launch import serve
 
     out = {}
     for arch in LM_ARCHS:
         cfg = get_config(arch)
-        torch.cuda.reset_peak_memory_stats()
 
-        def run():
-            t0 = time.perf_counter()
-            engine, reqs, dt = serve.serve_lm(
-                cfg, requests=LM_REQUESTS, prompt_len=LM_PROMPT,
-                new_tokens=LM_NEW, max_batch=LM_MAX_BATCH, device="cuda")
-            # the rest of the call: model build, weight draw, requests
-            return engine, reqs, dt, time.perf_counter() - t0 - dt
-        run()                                        # untimed warm-up
-        attn = sum(s.mixer in (ATTN, LOCAL_ATTN)
-                   for s in cfg.layer_cycle) * cfg.n_cycles
-        mamba = sum(s.mixer == MAMBA for s in cfg.layer_cycle) \
-            * cfg.n_cycles
-        want = ({"flash_attention"} if attn else set()) \
-            | ({"causal_conv1d"} if mamba else set())
-        engine, reqs, dt, setup_s = drive(entries, f"lm full width {arch}",
-                                          want, run)
-        model, params = engine.model, engine.params
-        t = engine.timings()
-        k7 = entries["causal_conv1d"]["launches_by_path"][
-            f"lm full width {arch}"]
-        k8 = entries["flash_attention"]["launches_by_path"][
-            f"lm full width {arch}"]
-        if k8 != attn * t["prefills"]:
-            raise AssertionError(f"{arch}: flash_attention launched {k8} "
-                                 f"times, want {attn} per prefill x "
-                                 f"{t['prefills']} and none in decode")
-        if k7 != K7_PER_MAMBA_LAYER * mamba * (t["prefills"]
-                                               + t["decode_steps"]):
-            raise AssertionError(
-                f"{arch}: causal_conv1d launched {k7} times, want "
-                f"{K7_PER_MAMBA_LAYER} per Mamba layer ({mamba}) per prefill "
-                f"and decode step ({t['prefills']} + {t['decode_steps']})")
-        if not all(r.done and len(r.out_tokens) == LM_NEW
-                   and all(0 <= x < cfg.vocab_size for x in r.out_tokens)
-                   for r in reqs):
-            raise AssertionError(f"{arch}: a request was not served whole")
-        tokens = sum(len(r.out_tokens) for r in reqs)
-        decoded = tokens - t["prefills"]   # each prefill samples one token
-        res = {
-            "params": sum(t.numel() for t in _leaves(params)),
-            "setup_s": setup_s, "layers": cfg.n_layers,
-            "requests": LM_REQUESTS, "prompt_len": LM_PROMPT,
-            "new_tokens": LM_NEW, "max_batch": LM_MAX_BATCH,
-            "seconds": dt, "tokens_per_s": tokens / dt,
-            "prefills": t["prefills"], "decode_steps": t["decode_steps"],
-            "prefill_ms_per_request": t["prefill_s"] * 1e3 / t["prefills"],
-            "prefill_tokens_per_s":
-                t["prefills"] * LM_PROMPT / t["prefill_s"],
-            "decode_ms_per_step": t["decode_s"] * 1e3 / t["decode_steps"],
-            "decode_tokens_per_s": decoded / t["decode_s"],
-            "launches": {"flash_attention": k8, "causal_conv1d": k7},
-            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
-        prof = lm_decode_profile(model, params, [r.prompt for r in reqs])
-        if prof is not None:
-            prof["idle_share"] = 1.0 - prof["device_ms_per_step"] \
-                / res["decode_ms_per_step"]
-            # untraced wall time per device operation the step enqueues
-            prof["wall_us_per_device_op"] = res["decode_ms_per_step"] \
-                * 1e3 / prof["device_ops_per_step"]
-        res["decode_profile"] = prof
+        def warm_up():
+            serve.serve_lm(cfg, requests=LM_REQUESTS, prompt_len=LM_PROMPT,
+                           new_tokens=LM_NEW, max_batch=LM_MAX_BATCH,
+                           device="cuda")
+        res, engine = serve_full_width(entries, cfg,
+                                       f"lm full width {arch}", warm_up)
         out[arch] = res
         print(f"[lm full width] {arch}: {json.dumps(res)}")
-        del params, engine, model
+        del engine
         torch.cuda.empty_cache()
     return out
 
@@ -2348,16 +2496,15 @@ def moe_golden_on_card(entries, smi):
     return res
 
 
-def _expert_bound(e, cap, d, f):
-    """(bound_ms, bound_by) of a layer's three expert products
-    (e × cap × d by e × d × f twice, then e × cap × f by e × f × d), float32:
-    the buffer and the three weights read once, the output written once,
-    against 2·e·cap·d·f multiply-adds per product at the float32 rate."""
-    nbytes = 4 * (e * cap * d + 3 * e * d * f + e * cap * d)
+def _expert_bound(e, cap, d, f, itemsize=4, rate=FP32_FLOPS_PER_S):
+    """(bound_ms, bound_by, flops) of a layer's three expert products
+    (e × cap × d by e × d × f twice, then e × cap × f by e × f × d) at
+    ``itemsize`` bytes an element: the buffer and the three weights read
+    once, the output written once, against 2·e·cap·d·f multiply-adds per
+    product at ``rate`` (float32 outside the tensor cores by default)."""
+    nbytes = itemsize * (e * cap * d + 3 * e * d * f + e * cap * d)
     flops = 3 * 2 * e * cap * d * f
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations"), flops
+    return _lm_bound(nbytes, flops, rate) + (flops,)
 
 
 def moe_full_width(entries, smi):
@@ -2543,6 +2690,210 @@ def moe_full_width(entries, smi):
     return res
 
 
+def zoo_full_width(entries, smi):
+    """Phase 12 (b): Qwen3-MoE-30B-A3B at full width and depth, bf16,
+    through ``serve_full_width`` after a warm-up of one layer at the same
+    widths (the same kernels at the same shapes), then a
+    decode step under sync-debug mode and one layer's expert products
+    at the decode shape against their byte bound.  Returns the
+    numbers."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import moe as moe_mod
+
+    cfg = get_config(ZOO_FULL_ARCH)
+
+    def warm_up():
+        serve.serve_lm(cfg.with_overrides(n_layers=1),
+                       requests=LM_MAX_BATCH, prompt_len=LM_PROMPT,
+                       new_tokens=2, max_batch=LM_MAX_BATCH, device="cuda")
+    res, engine = serve_full_width(
+        entries, cfg, f"lm zoo full width {ZOO_FULL_ARCH}", warm_up)
+    res["card"] = smi
+    model, params = engine.model, engine.params
+
+    # one decode step of the pool enqueues its work without a host sync
+    cache = model.init_cache(LM_MAX_BATCH, LM_PROMPT + LM_NEW + 8)
+    tok = torch.ones((LM_MAX_BATCH, 1), dtype=torch.int64, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.decode_step(params, cache, tok, LM_PROMPT)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    res["sync_free_decode_step"] = True
+    del cache
+
+    # one layer's expert products at the decode step's shapes
+    m = cfg.moe
+    cap = moe_mod._capacity(m.capacity_factor, LM_MAX_BATCH, m.top_k,
+                            m.num_experts)
+    p0 = {k: v[0] for k, v in params["stack"]["s0"]["moe"].items()}
+    buf = torch.randn(m.num_experts, cap, cfg.d_model, device="cuda") \
+        .to(cfg.torch_dtype)
+
+    def products():
+        h = torch.bmm(buf, p0["w_up"])
+        torch.bmm(buf, p0["w_gate"])
+        return torch.bmm(h, p0["w_down"])
+    b_ms, b_by, _ = _expert_bound(m.num_experts, cap, cfg.d_model,
+                                  m.d_ff_expert, buf.element_size(),
+                                  BF16_FLOPS_PER_S)
+    bmm = {"shape": [m.num_experts, cap, cfg.d_model, m.d_ff_expert],
+           "capacity": cap, "ms": time_ms(products, 20),
+           "device_ms": device_ms(products, iters=10),
+           "ffn_device_ms": device_ms(
+               lambda: moe_mod._expert_ffn(buf, p0, cfg.act), iters=10),
+           "bound_ms": b_ms, "bound_by": b_by}
+    if bmm["device_ms"] is not None and bmm["device_ms"] < b_ms:
+        # below the least time the card could take: back-to-back calls
+        # find part of the weights in L2, or the trace lost events
+        print(f"[lm zoo full width] the expert products' trace reads "
+              f"{bmm['device_ms']} ms, below their bound: not measured")
+        bmm["device_ms_below_bound"], bmm["device_ms"] = \
+            bmm["device_ms"], None
+    if bmm["device_ms"]:
+        bmm["bound_share"] = b_ms / bmm["device_ms"]
+        bmm["per_step_ms"] = bmm["device_ms"] * cfg.n_layers
+    res["expert_products"] = bmm
+    print(f"[lm zoo full width] {ZOO_FULL_ARCH}: {json.dumps(res)}")
+    del buf, p0, params, model, engine
+    torch.cuda.empty_cache()
+    return res
+
+
+class plain_attention:
+    """Inside the block, the model's attention runs K8's plain version
+    on the card in place of its kernel: the plain path a full-width
+    prefill on the kernel is held against."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.models import attention
+        self._mod, self._kernel = attention, attention.flash_attention
+        attention.flash_attention = fa.flash_attention_plain
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.flash_attention = self._kernel
+
+
+def _tensor_rel_l2(a, b):
+    return _rel_l2(a.float().cpu().numpy(), b.float().cpu().numpy())
+
+
+def zoo_cuts(entries):
+    """Phase 12 (c)–(e): each of ZOO_CUTS at full width (cut to the given
+    depth, or whole), bf16, seeded weights, numpy-made tokens and
+    modality input: the prefill on K8 against the plain path and decode
+    at position S−1 against a prefill over S positions (the MoE capacity
+    raised so that neither drops a token), each within LM_CUT_REL_L2 of
+    the logits."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    out = {}
+    for arch, n_layers in ZOO_CUTS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        if n_layers:
+            cfg = cfg.with_overrides(n_layers=n_layers)
+        model = build_model(cfg, "cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(1))
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t0
+        rng = np.random.default_rng(2)
+        batch = _frontend_batch(cfg, rng.integers(
+            1, cfg.vocab_size, (1, LM_CUT_PROMPT)), rng)
+        attn, _ = _attention_and_mamba_layers(cfg)
+        label = f"lm zoo cut {arch}"
+
+        logits, _ = drive(entries, label, {"flash_attention"},
+                          lambda: model.prefill(params, batch))
+        k8 = entries["flash_attention"]["launches_by_path"][label]
+        if k8 != attn:
+            raise AssertionError(f"{arch}: flash_attention launched {k8} "
+                                 f"times in one prefill, want {attn}")
+        with plain_attention():
+            plain, _ = model.prefill(params, batch)
+        rel = _tensor_rel_l2(logits, plain)
+        # decode against prefill, no capacity drop on either side: at
+        # capacity_factor = experts / top_k an expert has a slot for
+        # every token
+        dcfg = cfg if cfg.moe is None else cfg.with_overrides(
+            moe=dataclasses.replace(
+                cfg.moe,
+                capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+        dmodel = build_model(dcfg, "cuda")
+        n_front = cfg.frontend_len if cfg.frontend == "vision" else 0
+        full, _ = dmodel.prefill(params, batch)
+        _, cache = dmodel.prefill(params, dict(
+            batch, tokens=batch["tokens"][:, :-1]))
+        dec, _ = dmodel.decode_step(params, _pad_attention_cache(cache, 1),
+                                    batch["tokens"][:, -1:],
+                                    n_front + LM_CUT_PROMPT - 1)
+        dec_rel = _tensor_rel_l2(dec, full)
+        res = {"layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers,
+               "frontend_len": cfg.frontend_len if cfg.frontend else 0,
+               "prompt_len": LM_CUT_PROMPT,
+               "params": sum(x.numel() for x in _leaves(params)),
+               "draw_s": draw_s, "k8_launches": k8,
+               "kernel_vs_plain_rel_l2": rel,
+               "kernel_vs_plain_argmax_equal": bool(torch.equal(
+                   logits.argmax(-1), plain.argmax(-1))),
+               "decode_vs_prefill_rel_l2": dec_rel,
+               "decode_vs_prefill_argmax_equal": bool(torch.equal(
+                   dec.argmax(-1), full.argmax(-1))),
+               "finite": bool(torch.isfinite(logits).all()
+                              and torch.isfinite(dec).all()),
+               "seconds": time.perf_counter() - t0}
+        print(f"[lm zoo cut] {arch}: {json.dumps(res)}")
+        for what, r in (("kernel vs plain", rel),
+                        ("decode vs prefill", dec_rel)):
+            if not (res["finite"] and r <= LM_CUT_REL_L2):
+                raise AssertionError(
+                    f"{arch}: {what} relative L2 {r} (bound "
+                    f"{LM_CUT_REL_L2}, finite {res['finite']})")
+        out[arch] = res
+        del params, model, dmodel, cache, logits, plain, full, dec
+        torch.cuda.empty_cache()
+    return out
+
+
+def zoo_k8_shapes(entries):
+    """Phase 12 (f): K8 in bf16 against its plain version at the zoo's
+    new attention shapes, timed as phase 10 times Llama's."""
+    import torch
+    e = entries["flash_attention"]
+    g = torch.Generator(device="cuda").manual_seed(12)
+    print(f"[lm zoo kernels] flash_attention at the zoo's shapes "
+          f"({K8_BF16_TOL})")
+    return {name: k8_case(e, g, b, s, h, kh, d, torch.bfloat16)
+            for name, (b, s, h, kh, d) in K8_ZOO_SHAPES.items()}
+
+
+def lm_zoo(entries, smi):
+    """Phase 12, the LM zoo: (a)–(f), each part's seconds printed."""
+    out, seconds = {}, {}
+    for part, fn in (("golden", lambda: lm_golden(
+                         entries, LM_ZOO_GOLDEN, LM_ZOO_ARCHS,
+                         "lm zoo golden")),
+                     ("full_width", lambda: zoo_full_width(entries, smi)),
+                     ("cuts", lambda: zoo_cuts(entries)),
+                     ("k8_shapes", lambda: zoo_k8_shapes(entries))):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        seconds[part] = time.perf_counter() - t0
+        print(f"[lm zoo] {part}: {seconds[part]:.1f} s")
+    out["seconds"] = seconds
+    return out
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--warm-start":
         # the recovery phase's fresh process (``_warm_start_process``)
@@ -2608,11 +2959,12 @@ def main() -> int:
             fleet = fleet_on_card(entries, smi, Path(tmp) / "fleet-cache")
             recovery = recovery_on_card(entries, smi, Path(tmp) / "root")
         check_lm_kernels(entries)
-        lm_golden(entries)
+        lm_golden(entries, LM_GOLDEN, LM_ARCHS, "lm golden")
         lm = lm_full_width(entries)
         lm_cut = lm_plain_vs_kernel(entries)
         moe = {"golden": moe_golden_on_card(entries, smi),
                "full_width": moe_full_width(entries, smi)}
+        zoo = lm_zoo(entries, smi)
         keys = ("name", "route", "source", "replaces", "launches",
                 "max_abs_err", "equal") + TIMES + (
                 "shape", "launches_by_path", "cases")
@@ -2626,7 +2978,7 @@ def main() -> int:
                 "gateway": gateway, "fleet": fleet, "recovery": recovery,
                 "lm_k7_per_mamba_layer": entries["causal_conv1d"]["per_layer"],
                 "lm_full_width": lm, "lm_cut_plain_vs_kernel": lm_cut,
-                "moe": moe,
+                "moe": moe, "lm_zoo": zoo,
                 "int32_ops_per_s": int32_rate(), "card": smi}
         print(json.dumps(line))
         print(smi)

@@ -71,7 +71,11 @@ def lm_params_from_numpy(tree: Mapping, cfg,
     bfloat16 by dtype name), on ``device``.  Every leaf is checked
     against the shape the port's ``init_params`` gives it and cast to
     its dtype there (float32 → bfloat16 is exact for values that were
-    bfloat16).  Raises on a missing, extra or misshapen leaf."""
+    bfloat16), for every family of the zoo: MoE MLPs (``moe/*``, the
+    router kept in float32, Llama-4's ``shared_*``), the encoder
+    (``enc_stack``, ``enc_norm``) and the decoder's cross attention
+    (``ln_x``, ``cross``).  Raises on a missing, extra or misshapen
+    leaf."""
     dev = resolve_device(device)
     want = transformer.init_params(None, cfg)        # shapes on meta
 

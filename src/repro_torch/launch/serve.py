@@ -39,7 +39,9 @@ paths, the synchronous and async MoE paths and the LM path of
       [--save-plan moe_plan.json] [--async --occupancy 2.0] \\
       [--torch-device cuda|cpu]
 
-  # serve a zoo LM (its reduced "smoke" config, as the reference does)
+  # serve a zoo LM (its reduced "smoke" config, as the reference does):
+  # the dense, MoE (qwen3-moe-30b-a3b, llama4-maverick-400b-a17b),
+  # Mamba and hybrid (jamba-1.5-large-398b) families
   PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \\
       [--arch llama3.2-3b] --requests 6 --prompt-len 16 --new-tokens 24 \\
       --max-batch 4 [--torch-device cuda|cpu]
@@ -71,7 +73,11 @@ prepares them again without building anything.
 ``--workload lm`` serves ``smoke_config(--arch)`` with parameters drawn
 from a generator seeded with 0 and prompts from ``numpy``'s
 ``default_rng(0)``, through ``serve_lm``, which takes any
-``ModelConfig`` (the full-width configs too).  Prints what the
+``ModelConfig`` (the full-width configs too) whose prefill takes
+tokens alone: Whisper's ``frames`` and Pixtral's ``patches`` run
+through ``Model.prefill``/``decode_step`` only, as in the reference,
+whose ``Engine`` cannot prefill them, and ``serve_lm`` refuses those
+two archs before it draws a weight.  Prints what the
 reference's ``run_cnn``, ``run_cnn_async`` and ``run_lm`` print, with
 the device's name, and ``run_moe``, ``run_moe_async`` what theirs
 print; ``--fleet`` prints what the reference's
@@ -776,7 +782,14 @@ def serve_lm(cfg: ModelConfig, *, requests: int, prompt_len: int,
     ``Engine`` of ``cfg``, with parameters drawn from a generator seeded
     with 0 on the device; ``tracker`` (an ``ops.Tracker``) receives the
     engine's stats snapshots.  Returns the engine (its ``model`` and
-    ``params``), the served requests and the serving seconds."""
+    ``params``), the served requests and the serving seconds.  Raises
+    ``ValueError``, before any weight is drawn, for a config whose
+    prefill takes ``frames`` or ``patches``."""
+    if cfg.enc_dec or cfg.frontend is not None:
+        raise ValueError(
+            f"{cfg.name}: the LM Engine prefills tokens alone, as the "
+            f"reference's does; its {'frames' if cfg.enc_dec else 'patches'}"
+            f" run through Model.prefill and Model.decode_step only")
     dev = resolve_device(device)
     model = build_model(cfg, dev)
     params = model.init(torch.Generator(device=dev).manual_seed(0))

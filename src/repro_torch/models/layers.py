@@ -22,15 +22,36 @@ import torch.nn.functional as F
 # init helpers
 # ---------------------------------------------------------------------------
 
+# a leaf of more elements than this is drawn in slices of its leading
+# axis, each at most this size, so that its float32 draw never exists
+# whole (Llama-4-Maverick's (128, 5120, 8192) expert leaf would be a
+# 21.5 GB transient); every leaf of Llama-3.2-3B and Mamba-2-1.3B is
+# smaller and drawn in one piece
+DRAW_SLICE = 1 << 29
+
+
 def _normal(gen: Optional[torch.Generator], shape: Sequence[int],
             scale: float, dtype: torch.dtype) -> torch.Tensor:
     """Standard normal draws in float32 times ``scale``, cast to
-    ``dtype``, on the generator's device; on ``meta`` without one."""
+    ``dtype``, on the generator's device; on ``meta`` without one.  A
+    leaf above ``DRAW_SLICE`` elements is drawn slice by slice into the
+    result."""
+    shape = tuple(shape)
     if gen is None:
-        return torch.empty(tuple(shape), dtype=dtype, device="meta")
-    x = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return (x * scale).to(dtype)
+        return torch.empty(shape, dtype=dtype, device="meta")
+    n = math.prod(shape)
+    if n <= DRAW_SLICE or len(shape) < 2:
+        x = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=gen.device)
+        return (x * scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    rows = max(1, DRAW_SLICE // (n // shape[0]))
+    for r in range(0, shape[0], rows):
+        part = torch.randn((min(rows, shape[0] - r),) + shape[1:],
+                           generator=gen, dtype=torch.float32,
+                           device=gen.device)
+        out[r:r + rows].copy_(part.mul_(scale))
+    return out
 
 
 def dense_init(gen, shape, dtype, fan_in: Optional[int] = None):

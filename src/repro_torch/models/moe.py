@@ -22,10 +22,11 @@ Parity with the reference, which runs this path in float32:
   enqueues its work without waiting for the card.
 * Every dropped assignment writes into the buffer's last (sentinel)
   row, which is discarded; those duplicate writes race harmlessly.
-* Products run in full float32: the module expects
-  ``torch.backends.cuda.matmul.allow_tf32`` off and the float32 matmul
-  precision at ``"highest"`` (torch's defaults); TF32 would move the
-  outputs well past the tolerances the goldens are held to.
+* Products run in the input's dtype: in the MoE workload full float32,
+  where the module expects ``torch.backends.cuda.matmul.allow_tf32`` off
+  and the float32 matmul precision at ``"highest"`` (torch's defaults;
+  TF32 would move the outputs well past the tolerances the goldens are
+  held to), and in an LM's MoE MLP its dtype (bf16 at full width).
 
 Not ported: ``_hint`` (a sharding constraint, a no-op without a mesh)
 and the multi-device halves ``_combine_shardmap``,

@@ -1,10 +1,12 @@
 """Model facade: one object per architecture.
 
 Port of ``repro.models.registry`` for inference: ``Model`` (``init``,
-``init_cache``, ``prefill``, ``decode_step``) and ``build_model``.  The
-dry-run helpers ``init_abstract``, ``cache_abstract`` and
-``input_specs`` wait for ROADMAP's multi-device and analysis item, and
-``forward_train`` for its LM-zoo and training item.
+``init_cache``, ``prefill``, ``decode_step``) and ``build_model``, for
+every architecture of the zoo.  The modality frontends are stubs, as in
+the reference: ``patches`` / ``frames`` arrive in the prefill batch as
+precomputed embeddings.  ``forward_train`` waits for ROADMAP's training
+slice, and the dry-run helpers ``init_abstract``, ``cache_abstract`` and
+``input_specs`` for its multi-device and analysis item.
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ class Model:
         return tf.init_params(generator, self.cfg)
 
     def init_cache(self, batch: int, max_len: int):
-        return tf.init_cache(self.cfg, batch, max_len, self.device)
+        enc_len = self.cfg.frontend_len if self.cfg.enc_dec else 0
+        return tf.init_cache(self.cfg, batch, max_len, enc_len, self.device)
 
     # ---- forwards ------------------------------------------------------
     def prefill(self, params, batch):
@@ -44,5 +47,4 @@ class Model:
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = "cuda") -> Model:
-    tf.check_supported(cfg)
     return Model(cfg, resolve_device(device))

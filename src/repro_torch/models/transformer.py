@@ -1,75 +1,104 @@
-"""Unified decoder LM: the dense and SSM families.
+"""Unified decoder LM (+ optional encoder for Whisper).
 
-Port of ``repro.models.transformer`` for decoder-only models without MoE
-MLPs or a modality frontend (Llama, Gemma-2, Granite, Mamba-2).  The
-stack holds ``n_cycles`` stacked *cycles* (the repeating sublayer
-pattern from the config): every parameter and cache leaf leads with an
-``n_cycles`` dimension, as the reference's ``lax.scan`` carries them,
-and a Python loop walks the cycles.  The reference's rematerialization
-(``jax.checkpoint``) is a training concern and has no counterpart in
-this inference path.
+Port of ``repro.models.transformer`` for inference: every family of the
+zoo — dense, MoE MLPs (``models.moe``), Mamba-2 and hybrid stacks, the
+encoder-decoder (Whisper: ``frames``) and the vision prefix (Pixtral:
+``patches``), the modality inputs arriving as precomputed embeddings as
+in the reference.  The stack holds ``n_cycles`` stacked *cycles* (the
+repeating sublayer pattern from the config): every parameter and cache
+leaf leads with an ``n_cycles`` dimension, as the reference's
+``lax.scan`` carries them, and a Python loop walks the cycles.  The
+reference's rematerialization (``jax.checkpoint``) is a training
+concern and has no counterpart in this inference path;
+``forward_train`` waits for the training slice.
 
 Cache layout (decode): a dictionary ``{"s<j>": {leaf: tensor}}`` whose
 leaves lead with ``n_cycles``.  ``decode_step`` writes each layer's new
 K/V and SSM state into the cache it is given, in place (the reference
 returns an updated copy), and returns the same dictionary.
 
-An MoE MLP raises ``NotImplementedError``: the MoE layer itself is
-ported (``models.moe``, served by the MoE workload), but its place in
-the LM waits for ROADMAP's LM-zoo item, as do an encoder-decoder and a
-modality frontend; ``forward_train`` waits for the training slice.
+Each stacked parameter leaf is allocated once and every cycle is drawn
+into its slice (``_draw_stacked``), so a model's weights exist once at
+the peak of the draw, not twice.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Callable, Dict
 
 import torch
 
-from repro_torch.configs.base import (ATTN, LOCAL_ATTN, MAMBA, DENSE, MOE,
-                                      NONE)
+from repro_torch.configs.base import (ATTN, LOCAL_ATTN, MAMBA, DENSE, NONE)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (const_init, dense_init, embed_init,
                                        init_mlp, mlp, rms_norm, softcap)
-
-
-def check_supported(cfg) -> None:
-    """Raise for what this slice of the port does not run yet."""
-    if any(sub.mlp == MOE for sub in cfg.layer_cycle):
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE layer is ported (repro_torch.models.moe) "
-            f"but an LM's MoE MLP is not yet (ROADMAP: the LM-zoo item)")
-    if cfg.enc_dec or cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models and modality frontends are "
-            f"not ported yet (ROADMAP: the LM-zoo item)")
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
-def _init_sublayer(gen, cfg, sub):
+def _init_sublayer(gen, cfg, sub, *, cross: bool = False):
     p = {"ln1": const_init(gen, (cfg.d_model,), 0.0)}
     if sub.mixer in (ATTN, LOCAL_ATTN):
         p["attn"] = attn_mod.init_attention(gen, cfg)
     elif sub.mixer == MAMBA:
         p["mamba"] = ssm_mod.init_mamba(gen, cfg)
+    if cross:
+        p["ln_x"] = const_init(gen, (cfg.d_model,), 0.0)
+        p["cross"] = attn_mod.init_attention(gen, cfg)
     if sub.mlp != NONE:
         p["ln2"] = const_init(gen, (cfg.d_model,), 0.0)
-        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_gated,
-                            cfg.torch_dtype)
+        if sub.mlp == DENSE:
+            p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_gated,
+                                cfg.torch_dtype)
+        else:
+            p["moe"] = moe_mod.init_moe(gen, cfg)
     return p
 
 
-def _stack(trees: List[Dict]) -> Dict:
-    """Leafwise ``torch.stack`` of equally shaped nested dictionaries."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
+def _init_enc_layer(gen, cfg):
+    """One encoder layer: bidirectional attention and a dense MLP."""
+    return {"s0": {
+        "ln1": const_init(gen, (cfg.d_model,), 0.0),
+        "attn": attn_mod.init_attention(gen, cfg),
+        "ln2": const_init(gen, (cfg.d_model,), 0.0),
+        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_gated,
+                        cfg.torch_dtype)}}
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _copy_into(stack: Dict, tree: Dict, i: int) -> None:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _copy_into(stack[k], v, i)
+        else:
+            stack[k][i].copy_(v)
+
+
+def _draw_stacked(draw: Callable[[], Dict], n: int) -> Dict:
+    """``n`` calls of ``draw`` stacked leafwise, as ``torch.stack`` of
+    the list of draws would give them, but each stacked leaf allocated
+    once: every draw is copied into its slice and freed before the
+    next, so the peak is the stack and one draw (one draw stacks as
+    views, with no copy)."""
+    first = draw()
+    if n == 1:
+        return _tree_map(lambda t: t.unsqueeze(0), first)
+    stack = _tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
+    _copy_into(stack, first, 0)
+    del first
+    for i in range(1, n):
+        _copy_into(stack, draw(), i)
+    return stack
 
 
 def index_tree(tree, i: int):
@@ -81,20 +110,26 @@ def index_tree(tree, i: int):
 
 def init_params(gen, cfg):
     """Parameters drawn from ``gen`` on its device; with ``gen=None``,
-    empty tensors of the same shapes and dtypes on ``meta``."""
-    check_supported(cfg)
+    empty tensors of the same shapes and dtypes on ``meta``.  The draws
+    run in a fixed order: the embedding, the decoder cycles, the
+    unembedding, then the encoder layers."""
     dt = cfg.torch_dtype
     params = {
         "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), dt),
         "final_norm": const_init(gen, (cfg.d_model,), 0.0),
-        "stack": _stack([
-            {f"s{j}": _init_sublayer(gen, cfg, sub)
-             for j, sub in enumerate(cfg.layer_cycle)}
-            for _ in range(cfg.n_cycles)]),
+        "stack": _draw_stacked(
+            lambda: {f"s{j}": _init_sublayer(gen, cfg, sub,
+                                             cross=cfg.enc_dec)
+                     for j, sub in enumerate(cfg.layer_cycle)},
+            cfg.n_cycles),
     }
     if not cfg.tie_embeddings:
         params["unembed"] = dense_init(
             gen, (cfg.d_model, cfg.vocab_size), dt, fan_in=cfg.d_model)
+    if cfg.enc_dec:
+        params["enc_stack"] = _draw_stacked(
+            lambda: _init_enc_layer(gen, cfg), cfg.n_enc_layers)
+        params["enc_norm"] = const_init(gen, (cfg.d_model,), 0.0)
     return params
 
 
@@ -102,26 +137,33 @@ def init_params(gen, cfg):
 # cache
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg, batch: int, max_len: int,
+def init_cache(cfg, batch: int, max_len: int, enc_len: int = 0,
                device: DeviceLike = "cuda"):
     """Zero-initialized decode cache (leaves lead with n_cycles), on the
-    card unless the caller passes ``device="cpu"``."""
-    check_supported(cfg)
+    card unless the caller passes ``device="cpu"``.  An encoder-decoder's
+    entries also hold the cross-attention K/V (``ck``, ``cv``) over
+    ``enc_len`` encoder positions."""
     device = resolve_device(device)
     dt = cfg.torch_dtype
     cache = {}
+
+    def zeros(*shape, dtype=dt):
+        return torch.zeros((cfg.n_cycles,) + shape, dtype=dtype,
+                           device=device)
+
     for j, sub in enumerate(cfg.layer_cycle):
         if sub.mixer in (ATTN, LOCAL_ATTN):
-            kv = (cfg.n_cycles, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-            entry = {"k": torch.zeros(kv, dtype=dt, device=device),
-                     "v": torch.zeros(kv, dtype=dt, device=device)}
+            kv = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+            entry = {"k": zeros(*kv), "v": zeros(*kv)}
         elif sub.mixer == MAMBA:
             one = ssm_mod.init_mamba_cache(cfg, batch, device)
-            entry = {k: torch.zeros((cfg.n_cycles,) + tuple(v.shape),
-                                    dtype=v.dtype, device=device)
+            entry = {k: zeros(*v.shape, dtype=v.dtype)
                      for k, v in one.items()}
         else:
             entry = {}
+        if cfg.enc_dec:
+            ckv = (batch, enc_len, cfg.n_kv_heads, cfg.head_dim)
+            entry["ck"], entry["cv"] = zeros(*ckv), zeros(*ckv)
         cache[f"s{j}"] = entry
     return cache
 
@@ -130,8 +172,10 @@ def init_cache(cfg, batch: int, max_len: int,
 # forward
 # ---------------------------------------------------------------------------
 
-def _run_sublayer(p, x, cfg, sub, *, mode, cache, cache_pos):
-    """mode: 'prefill' | 'decode'.  Returns (x, new cache entries)."""
+def _run_sublayer(p, x, cfg, sub, *, mode, cache, cache_pos, enc_out):
+    """mode: 'prefill' | 'decode'.  Returns (x, new cache entries, the
+    MoE MLP's aux loss or None)."""
+    aux = None
     new_cache = {}
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     window = cfg.sliding_window if sub.mixer == LOCAL_ATTN else None
@@ -154,22 +198,41 @@ def _run_sublayer(p, x, cfg, sub, *, mode, cache, cache_pos):
         new_cache.update(mc)
         x = x + y
 
+    if "cross" in p:
+        # cross attention over the encoder's output: its K/V are computed
+        # in prefill, written to the cache and read back in decode
+        h = rms_norm(x, p["ln_x"], cfg.norm_eps)
+        if mode == "decode":
+            ckv = (cache["ck"], cache["cv"])
+        else:
+            ckv = attn_mod.init_cross_kv(p["cross"], enc_out, cfg)
+            new_cache["ck"], new_cache["cv"] = ckv
+        y, _ = attn_mod.attention_block(p["cross"], h, cfg, cross_kv=ckv)
+        x = x + y
+
     if sub.mlp != NONE:
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + mlp(p["mlp"], h, cfg.act)
-    return x, new_cache
+        if sub.mlp == DENSE:
+            y = mlp(p["mlp"], h, cfg.act)
+        else:
+            y, aux = moe_mod.moe_layer(p["moe"], h, cfg)
+        x = x + y
+    return x, new_cache, aux
 
 
-def _run_stack(params, x, cfg, *, mode, cache, cache_pos=None):
+def _run_stack(params, x, cfg, *, mode, cache, cache_pos=None,
+               enc_out=None):
     """Walk the cycle stack, writing each layer's new cache entries into
-    ``cache`` (leaves lead with n_cycles) in place.  Returns x."""
+    ``cache`` (leaves lead with n_cycles) in place.  Returns x; the MoE
+    MLPs' aux losses are dropped, as prefill and decode drop them."""
     for i in range(cfg.n_cycles):
         cyc_params = index_tree(params["stack"], i)
         for j, sub in enumerate(cfg.layer_cycle):
             key = f"s{j}"
             sub_cache = index_tree(cache[key], i)
-            x, nc = _run_sublayer(cyc_params[key], x, cfg, sub, mode=mode,
-                                  cache=sub_cache, cache_pos=cache_pos)
+            x, nc, _ = _run_sublayer(cyc_params[key], x, cfg, sub,
+                                     mode=mode, cache=sub_cache,
+                                     cache_pos=cache_pos, enc_out=enc_out)
             for name, val in nc.items():
                 dst = sub_cache[name]
                 if val.data_ptr() != dst.data_ptr():
@@ -180,6 +243,13 @@ def _run_stack(params, x, cfg, *, mode, cache, cache_pos=None):
 def _tokens(params, tokens) -> torch.Tensor:
     return torch.as_tensor(tokens, dtype=torch.int64,
                            device=params["embed"].device)
+
+
+def _frontend_input(params, batch, name, cfg) -> torch.Tensor:
+    """``batch[name]`` (``frames`` or ``patches``, (B, F, D) precomputed
+    embeddings) on the parameters' device in the model's dtype."""
+    return torch.as_tensor(batch[name], device=params["embed"].device) \
+        .to(cfg.torch_dtype)
 
 
 def _embed(params, tokens, cfg):
@@ -199,17 +269,49 @@ def _logits(params, x, cfg):
     return softcap(logits.float(), cfg.final_softcap)
 
 
+def _encode(params, frames, cfg):
+    """Whisper encoder over stub frame embeddings (B, F, D): sinusoidal
+    positions, then per layer bidirectional attention and the MLP, then
+    the encoder's final norm."""
+    f, d = frames.shape[1], cfg.d_model
+    pos = torch.arange(f, dtype=torch.float32, device=frames.device)
+    inv = 1.0 / (10000.0 ** (torch.arange(0, d, 2, dtype=torch.float32,
+                                          device=frames.device) / d))
+    ang = pos[:, None] * inv[None, :]
+    pe = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+    x = frames + pe[None].to(frames.dtype)
+    for i in range(cfg.n_enc_layers):
+        p = index_tree(params["enc_stack"], i)["s0"]
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        y, _ = attn_mod.attention_block(p["attn"], h, cfg, causal=False)
+        x = x + y
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        x = x + mlp(p["mlp"], h, cfg.act)
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
 # ---------------------------------------------------------------------------
 # public entry points
 # ---------------------------------------------------------------------------
 
 def prefill(params, batch, cfg):
-    """Full-sequence prefill.  Returns (last-position logits (B,V), cache)."""
-    check_supported(cfg)
+    """Full-sequence prefill.  batch: tokens (B, S) [, patches (B, P, D)
+    | frames (B, F, D)].  Returns (last-position logits (B,V), cache);
+    a vision prefix's P positions come first in the cache, so decode
+    positions count them."""
     tokens = _tokens(params, batch["tokens"])
     x = _embed(params, tokens, cfg)
-    cache = init_cache(cfg, tokens.shape[0], x.shape[1], x.device)
-    x = _run_stack(params, x, cfg, mode="prefill", cache=cache)
+    enc_out = None
+    if cfg.frontend == "vision":
+        x = torch.cat([_frontend_input(params, batch, "patches", cfg), x],
+                      dim=1)
+    if cfg.enc_dec:
+        enc_out = _encode(params, _frontend_input(params, batch, "frames",
+                                                  cfg), cfg)
+    cache = init_cache(cfg, tokens.shape[0], x.shape[1],
+                       0 if enc_out is None else enc_out.shape[1], x.device)
+    x = _run_stack(params, x, cfg, mode="prefill", cache=cache,
+                   enc_out=enc_out)
     logits = _logits(params, x[:, -1:], cfg)
     return logits[:, 0], cache
 
@@ -217,7 +319,6 @@ def prefill(params, batch, cfg):
 def decode_step(params, cache, token, pos, cfg):
     """One decode step.  token: (B,1) ints; pos: int (write slot).
     Returns (logits (B,V), cache), the cache updated in place."""
-    check_supported(cfg)
     x = _embed(params, _tokens(params, token), cfg)
     x = _run_stack(params, x, cfg, mode="decode", cache=cache,
                    cache_pos=int(pos))

@@ -9,7 +9,9 @@ standard continuous-batching discipline, with a static-shape slot pool.
 The decode cache is allocated once at (max_batch, max_len) on the
 model's device; prefill writes a prefix, decode appends in place.
 Admission is lockstep, as the reference's: every occupied slot shares
-one write position per step.
+one write position per step.  A decode step runs the whole pool: empty
+slots feed token 0, as the reference's do, and in an MoE LM those rows
+take expert capacity like any other, in slot order.
 
 Beside the reference's bookkeeping the engine counts its prefills and
 decode steps and the host seconds each took (``timings()``): both end

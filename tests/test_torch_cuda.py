@@ -6,7 +6,8 @@ CUDA cores' multiply-add for int32 ones) — the launch contract, and
 the slices on the card against the JAX reference's golden outputs: the
 serving path (K1–K3), the per-plane path (``ConvBlock.apply``,
 ``cnn_forward_loop``, ``validate_plan``: K3–K6), the LM path (K7,
-K8: ``prefill``, ``decode_step`` and the ``Engine``), the quantized MoE
+K8: ``prefill``, ``decode_step`` and the ``Engine``; the whole zoo at
+smoke size, and Qwen3-MoE at full width cut to 4 layers), the quantized MoE
 workload (no kernel of its own: layer by layer against the golden, the
 bucketed forward against eager, no host sync), and the persistent
 cache's kernel libraries (a corrupt one quarantined and rebuilt; a warm
@@ -28,7 +29,7 @@ from repro_torch import convert, runtime
 from repro_torch.blocks import base, get_block
 from repro_torch.core import allocate, cnn, deploy, synth
 from repro_torch.configs.paper_conv import REDUCED_SWEEP
-from repro_torch.configs import smoke_config
+from repro_torch.configs import get_config, smoke_config
 from repro_torch.kernels import conv1d, conv2d, flash_attention as fa
 from repro_torch.models import build_model
 from repro_torch.serve import (AsyncCNNGateway, AsyncServeConfig, CNNEngine,
@@ -44,6 +45,7 @@ PINNED = SRC / "plans" / "quickstart_v5e_conv1_conv3.json"
 GOLDEN = SRC / "golden" / "quickstart_reference.npz"
 LM_GOLDEN = SRC / "golden" / "lm_reference.npz"
 MOE_GOLDEN = SRC / "golden" / "moe_reference.npz"
+LM_ZOO_GOLDEN = SRC / "golden" / "lm_zoo_reference.npz"
 
 KERNELS = {"conv1_layer": (conv2d.conv1_layer, conv2d.conv1_layer_plain),
            "fused_dot_layer": (base.fused_dot_layer,
@@ -663,7 +665,11 @@ FLASH_CASES = [(1, 512, 512, 24, 8, 128, True, torch.bfloat16),
                (2, 100, 100, 4, 2, 8, True, torch.bfloat16),
                (1, 130, 130, 6, 3, 72, True, torch.bfloat16),
                (1, 77, 77, 4, 4, 36, True, torch.bfloat16),
-               (2, 200, 70, 8, 1, 128, False, torch.bfloat16)]
+               (2, 200, 70, 8, 1, 128, False, torch.bfloat16),
+               # the LM zoo's prefills: Qwen3-MoE (GQA group 8) and
+               # Whisper's decoder (MHA at head dim 64)
+               (1, 512, 512, 32, 4, 128, True, torch.bfloat16),
+               (1, 512, 512, 16, 16, 64, True, torch.bfloat16)]
 
 
 @pytest.mark.parametrize("b,s,t,h,kh,d,causal,dtype", FLASH_CASES)
@@ -704,50 +710,96 @@ def test_lm_kernels_refuse_what_they_do_not_take(cuda):
                            q, q)
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-1.3b"])
+def _pad_kv(cache, n):
+    for entry in cache.values():
+        for name in ("k", "v"):
+            if name in entry:
+                entry[name] = torch.nn.functional.pad(entry[name],
+                                                      (0, 0, 0, 0, 0, n))
+    return cache
+
+
+LM_GOLDEN_ARCHS = {"llama3.2-3b": LM_GOLDEN, "mamba2-1.3b": LM_GOLDEN,
+                   "qwen3-moe-30b-a3b": LM_ZOO_GOLDEN,
+                   "llama4-maverick-400b-a17b": LM_ZOO_GOLDEN,
+                   "jamba-1.5-large-398b": LM_ZOO_GOLDEN,
+                   "whisper-medium": LM_ZOO_GOLDEN,
+                   "pixtral-12b": LM_ZOO_GOLDEN}
+
+
+@pytest.mark.parametrize("arch", list(LM_GOLDEN_ARCHS))
 def test_lm_on_card_matches_golden(cuda, arch):
-    """The smoke configs at float32 on the card against the reference's
-    committed outputs: logits within 2e-3, greedy tokens equal; K8 runs
-    once per attention layer in prefill and never in decode, K7 three
-    times per Mamba layer in both."""
+    """Every zoo arch's smoke config at float32 on the card against the
+    reference's committed outputs: logits within 2e-3 (a vision prefix
+    counted in the decode positions), greedy tokens equal where the file
+    holds them (for the MoE archs two identical prompts in one wave); K8
+    once per attention layer per prefill and never in decode, K7 three
+    times per Mamba layer per call."""
     cfg = smoke_config(arch).with_overrides(dtype="float32")
-    with np.load(LM_GOLDEN) as z:
+    with np.load(LM_GOLDEN_ARCHS[arch]) as z:
         g = {k: z[k] for k in z.files if k.startswith(arch + "/")}
     model = build_model(cfg, cuda)
     params = convert.lm_params_from_numpy(
         convert.nested_from_flat(g, f"{arch}/params"), cfg, cuda)
-    toks = g[f"{arch}/tokens"]
-    attn = cfg.n_layers if arch.startswith("llama") else 0
-    mamba = cfg.n_layers - attn
+    batch = {"tokens": g[f"{arch}/tokens"]}
+    for name in ("frames", "patches"):
+        if f"{arch}/{name}" in g:
+            batch[name] = g[f"{arch}/{name}"]
+    attn = sum(s.mixer == "attn" for s in cfg.layer_cycle) * cfg.n_cycles
+    mamba = sum(s.mixer == "mamba" for s in cfg.layer_cycle) * cfg.n_cycles
     k7, k8 = conv1d.causal_conv1d.launches, fa.flash_attention.launches
-    logits, _ = model.prefill(params, {"tokens": toks})
+    logits, _ = model.prefill(params, batch)
     assert fa.flash_attention.launches - k8 == attn
     assert conv1d.causal_conv1d.launches - k7 == 3 * mamba
     np.testing.assert_allclose(logits.cpu().numpy(),
                                g[f"{arch}/prefill_logits"], rtol=2e-3,
                                atol=2e-3)
     pos = g[f"{arch}/decode_pos"]
-    _, cache = model.prefill(params, {"tokens": toks[:, :pos[0]]})
-    for entry in cache.values():
-        for name in ("k", "v"):
-            if name in entry:
-                entry[name] = torch.nn.functional.pad(
-                    entry[name], (0, 0, 0, 0, 0, len(pos)))
+    start = batch["tokens"].shape[1] - len(pos)
+    _, cache = model.prefill(params, dict(batch,
+                                          tokens=batch["tokens"][:, :start]))
+    cache = _pad_kv(cache, len(pos))
     k7, k8 = conv1d.causal_conv1d.launches, fa.flash_attention.launches
     for i, p in enumerate(pos):
-        logits, cache = model.decode_step(params, cache, toks[:, p:p + 1],
-                                          int(p))
+        t = start + i
+        logits, cache = model.decode_step(params, cache,
+                                          batch["tokens"][:, t:t + 1], int(p))
         np.testing.assert_allclose(logits.cpu().numpy(),
                                    g[f"{arch}/decode_logits"][i],
                                    rtol=2e-3, atol=2e-3)
     assert fa.flash_attention.launches == k8
     assert conv1d.causal_conv1d.launches - k7 == 3 * mamba * len(pos)
-    reqs = [Request(prompt=[int(t) for t in p], request_id=i)
-            for i, p in enumerate(g[f"{arch}/engine_prompts"])]
-    Engine(model, params, ServeConfig(max_batch=2, max_len=32,
-                                      max_new_tokens=5)).run(reqs)
-    assert [r.out_tokens for r in reqs] == g[f"{arch}/engine_tokens"] \
-        .tolist()
+    if f"{arch}/engine_prompts" in g:
+        reqs = [Request(prompt=[int(t) for t in p], request_id=i)
+                for i, p in enumerate(g[f"{arch}/engine_prompts"])]
+        Engine(model, params, ServeConfig(max_batch=2, max_len=32,
+                                          max_new_tokens=5)).run(reqs)
+        assert [r.out_tokens for r in reqs] \
+            == g[f"{arch}/engine_tokens"].tolist()
+
+
+def test_qwen3_moe_full_width_cut_kernel_matches_plain_on_card(cuda):
+    """Qwen3-MoE-30B-A3B at full width cut to 4 layers, bf16, seeded
+    weights: the prefill on K8 (4 launches) against the same prefill
+    with K8's plain version, relative L2 of the logits within 5e-2."""
+    from repro_torch.models import attention
+    cfg = get_config("qwen3-moe-30b-a3b").with_overrides(n_layers=4)
+    model = build_model(cfg, cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(1))
+    toks = np.random.default_rng(2).integers(1, cfg.vocab_size, (1, 100))
+    before = fa.flash_attention.launches
+    logits, _ = model.prefill(params, {"tokens": toks})
+    assert fa.flash_attention.launches - before == 4
+    kernel = attention.flash_attention
+    attention.flash_attention = fa.flash_attention_plain
+    try:
+        plain, _ = model.prefill(params, {"tokens": toks})
+    finally:
+        attention.flash_attention = kernel
+    assert fa.flash_attention.launches - before == 4
+    a, b = logits.float().cpu(), plain.float().cpu()
+    assert torch.isfinite(a).all()
+    assert float((a - b).norm() / b.norm()) < 5e-2
 
 
 def test_moe_on_card_matches_golden_and_syncs_nothing(cuda):

@@ -40,12 +40,24 @@ activations for them at max_batch 4, dispatched as ``MOE_DISPATCHES``
 so that buckets 1, 2 and 4 all run: each layer's input (``layer_in``,
 (layers, 8, 32, 64)) and the outputs (``y``).
 
+``src/repro_torch/golden/lm_zoo_reference.npz`` holds the same entries
+for each arch of ``LM_ZOO_ARCHS`` (Qwen3-MoE, Llama-4-Maverick, Jamba,
+Whisper, Pixtral) at ``smoke_config`` in float32, from
+``default_rng(2000 + n)``: besides the tokens, the numpy-made modality
+input an arch takes (``<arch>/frames`` for Whisper, ``<arch>/patches``
+for Pixtral, (2, 8, 64)); decode positions count Pixtral's 8-patch
+prefix; ``engine_prompts`` → ``engine_tokens`` for the three MoE archs
+only (the reference's ``Engine`` cannot prefill ``frames`` or
+``patches``), with request 1's prompt equal to request 0's, so that
+both decode in one wave and take MoE capacity from each other (in
+Llama-4's top-1, capacity-1 decode the second is dropped).
+
 The card is held against the JAX package through these files, without
 importing it.  Regenerate all of them (the reference's planner and this
 file run the reference's resource sweep, about a minute without its
-cache):
+cache), or only those named (``plans golden synth lm lm_zoo moe``):
 
-    PYTHONPATH=src python tests/test_torch_golden.py
+    PYTHONPATH=src python tests/test_torch_golden.py [lm_zoo ...]
 """
 
 import dataclasses
@@ -80,6 +92,11 @@ MOE_ARCH, MOE_MAX_BATCH, MOE_REQUESTS = "qwen3-moe-30b-a3b", 4, 8
 # 1, 2, then 4 and 1 (five requests chunk into 4 + 1)
 MOE_DISPATCHES = ((0, 1), (1, 3), (3, 8))
 LM_ARCHS = ("llama3.2-3b", "mamba2-1.3b")
+LM_ZOO_GOLDEN = ROOT / "src" / "repro_torch" / "golden" \
+    / "lm_zoo_reference.npz"
+LM_ZOO_MOE_ARCHS = ("qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b",
+                    "jamba-1.5-large-398b")
+LM_ZOO_ARCHS = LM_ZOO_MOE_ARCHS + ("whisper-medium", "pixtral-12b")
 LM_BATCH, LM_SEQ, LM_DECODE_STEPS = 2, 16, 3
 # the reference Engine's requests: prompts of 8 tokens, 5 new tokens each,
 # two slots (the tests/test_serve.py shape)
@@ -151,46 +168,66 @@ def reference_golden(plans):
     return arrays
 
 
-def lm_reference_golden():
-    """Arrays of the LM golden npz, computed by the reference model and
-    engine at ``smoke_config`` in float32."""
+def frontend_inputs(cfg):
+    """The modality inputs ``cfg``'s prefill takes besides its tokens."""
+    return (("frames",) if cfg.enc_dec else ()) \
+        + (("patches",) if cfg.frontend == "vision" else ())
+
+
+def lm_arch_golden(arch, rng, *, engine=True, same_prompts=False):
+    """Arrays of one arch's LM golden entries, computed by the reference
+    model (and ``Engine`` with ``engine``) at ``smoke_config`` in
+    float32 from numpy's ``rng``: parameters, prompts, modality inputs
+    (``0.1 * standard_normal``, (LM_BATCH, frontend_len, d_model)),
+    prefill and decode logits (decode positions count a vision prefix)
+    and greedy tokens (with ``same_prompts``, request 1's prompt is
+    request 0's)."""
+    cfg = smoke_config(arch).with_overrides(dtype="float32")
+    model = build_model(cfg)
+    params = model.init(jax.random.PRNGKey(0))
     arrays = {}
-    for n, arch in enumerate(LM_ARCHS):
-        cfg = smoke_config(arch).with_overrides(dtype="float32")
-        model = build_model(cfg)
-        params = model.init(jax.random.PRNGKey(0))
-        for path, leaf in jax.tree_util.tree_leaves_with_path(params):
-            key = "/".join(p.key for p in path)
-            arrays[f"{arch}/params/{key}"] = np.asarray(leaf)
-        rng = np.random.default_rng(1000 + n)
-        toks = rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_SEQ)) \
-            .astype(np.int32)
-        arrays[f"{arch}/tokens"] = toks
-        prefill = jax.jit(model.prefill)
-        logits, _ = prefill(params, {"tokens": jnp.asarray(toks)})
-        arrays[f"{arch}/prefill_logits"] = np.asarray(logits)
-        start = LM_SEQ - LM_DECODE_STEPS
-        _, cache = prefill(params, {"tokens": jnp.asarray(toks[:, :start])})
-        cache = {key: {name: jnp.pad(leaf, ((0, 0), (0, 0),
-                                            (0, LM_DECODE_STEPS), (0, 0),
-                                            (0, 0)))
-                       if name in ("k", "v") else leaf
-                       for name, leaf in entry.items()}
-                 for key, entry in cache.items()}
-        decode = jax.jit(model.decode_step)
-        steps = []
-        for pos in range(start, LM_SEQ):
-            logits, cache = decode(params, cache,
-                                   jnp.asarray(toks[:, pos:pos + 1]),
-                                   jnp.int32(pos))
-            steps.append(np.asarray(logits))
-        arrays[f"{arch}/decode_pos"] = np.arange(start, LM_SEQ,
-                                                 dtype=np.int32)
-        arrays[f"{arch}/decode_logits"] = np.stack(steps)
+    for path, leaf in jax.tree_util.tree_leaves_with_path(params):
+        key = "/".join(p.key for p in path)
+        arrays[f"{arch}/params/{key}"] = np.asarray(leaf)
+    toks = rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_SEQ)) \
+        .astype(np.int32)
+    arrays[f"{arch}/tokens"] = toks
+    extra = {}
+    for name in frontend_inputs(cfg):
+        arrays[f"{arch}/{name}"] = (0.1 * rng.standard_normal(
+            (LM_BATCH, cfg.frontend_len, cfg.d_model))).astype(np.float32)
+        extra[name] = jnp.asarray(arrays[f"{arch}/{name}"])
+    n_front = cfg.frontend_len if cfg.frontend == "vision" else 0
+    prefill = jax.jit(model.prefill)
+    logits, _ = prefill(params, {"tokens": jnp.asarray(toks), **extra})
+    arrays[f"{arch}/prefill_logits"] = np.asarray(logits)
+    start = LM_SEQ - LM_DECODE_STEPS
+    _, cache = prefill(params, {"tokens": jnp.asarray(toks[:, :start]),
+                                **extra})
+    cache = {key: {name: jnp.pad(leaf, ((0, 0), (0, 0),
+                                        (0, LM_DECODE_STEPS), (0, 0),
+                                        (0, 0)))
+                   if name in ("k", "v") else leaf
+                   for name, leaf in entry.items()}
+             for key, entry in cache.items()}
+    decode = jax.jit(model.decode_step)
+    steps = []
+    for pos in range(start, LM_SEQ):
+        logits, cache = decode(params, cache,
+                               jnp.asarray(toks[:, pos:pos + 1]),
+                               jnp.int32(n_front + pos))
+        steps.append(np.asarray(logits))
+    arrays[f"{arch}/decode_pos"] = np.arange(n_front + start,
+                                             n_front + LM_SEQ,
+                                             dtype=np.int32)
+    arrays[f"{arch}/decode_logits"] = np.stack(steps)
+    if engine:
         e = LM_ENGINE
         prompts = rng.integers(1, cfg.vocab_size,
                                (e["requests"], e["prompt_len"])) \
             .astype(np.int32)
+        if same_prompts:
+            prompts[1] = prompts[0]
         reqs = [Request(prompt=[int(t) for t in p], request_id=i)
                 for i, p in enumerate(prompts)]
         Engine(model, params, ServeConfig(
@@ -199,6 +236,28 @@ def lm_reference_golden():
         arrays[f"{arch}/engine_prompts"] = prompts
         arrays[f"{arch}/engine_tokens"] = np.asarray(
             [r.out_tokens for r in reqs], np.int32)
+    return arrays
+
+
+def lm_reference_golden():
+    """Arrays of the LM golden npz, computed by the reference model and
+    engine at ``smoke_config`` in float32."""
+    arrays = {}
+    for n, arch in enumerate(LM_ARCHS):
+        arrays.update(lm_arch_golden(arch, np.random.default_rng(1000 + n)))
+    return arrays
+
+
+def lm_zoo_reference_golden():
+    """Arrays of the LM-zoo golden npz: each of ``LM_ZOO_ARCHS`` as
+    ``lm_arch_golden`` makes it, the ``Engine``'s greedy tokens for the
+    MoE archs only (the reference's engine prefills tokens alone, so it
+    cannot serve Whisper or Pixtral), two of their four prompts equal."""
+    arrays = {}
+    for n, arch in enumerate(LM_ZOO_ARCHS):
+        moe = arch in LM_ZOO_MOE_ARCHS
+        arrays.update(lm_arch_golden(arch, np.random.default_rng(2000 + n),
+                                     engine=moe, same_prompts=moe))
     return arrays
 
 
@@ -255,6 +314,22 @@ def test_lm_golden_rebuilds_from_reference():
     the CPU; XLA may vectorize sums differently on another CPU)."""
     want = lm_reference_golden()
     with np.load(LM_GOLDEN) as got:
+        assert sorted(got.files) == sorted(want)
+        for k, v in want.items():
+            assert got[k].dtype == v.dtype and got[k].shape == v.shape, k
+            if "logits" in k:
+                np.testing.assert_allclose(got[k], v, rtol=0, atol=1e-6,
+                                           err_msg=k)
+            else:
+                assert np.array_equal(got[k], v), k
+
+
+def test_lm_zoo_golden_rebuilds_from_reference():
+    """The committed LM-zoo golden file is the reference's: parameters,
+    prompts, modality inputs and greedy tokens exactly, logits within
+    1e-6 (float32 on the CPU)."""
+    want = lm_zoo_reference_golden()
+    with np.load(LM_ZOO_GOLDEN) as got:
         assert sorted(got.files) == sorted(want)
         for k, v in want.items():
             assert got[k].dtype == v.dtype and got[k].shape == v.shape, k
@@ -323,22 +398,38 @@ def write_synth_reference(rows):
         f'"rows": [\n{lines}\n]}}\n')
 
 
-def main():
-    plans = {stem: reference_plan(stem) for stem in PINS}
-    PLANS.mkdir(parents=True, exist_ok=True)
-    for stem, plan in plans.items():
-        plan.save(PLANS / f"{stem}.json")
-    GOLDEN.parent.mkdir(parents=True, exist_ok=True)
-    np.savez_compressed(GOLDEN, **reference_golden(plans))
-    write_synth_reference(synth.run_sweep())
-    np.savez_compressed(LM_GOLDEN, **lm_reference_golden())
-    np.savez_compressed(MOE_GOLDEN, **moe_reference_golden())
-    print(f"wrote {len(plans)} plans to {PLANS}, {GOLDEN} "
-          f"({GOLDEN.stat().st_size} bytes), {SYNTH_REFERENCE} "
-          f"({SYNTH_REFERENCE.stat().st_size} bytes), {LM_GOLDEN} "
-          f"({LM_GOLDEN.stat().st_size} bytes) and {MOE_GOLDEN} "
-          f"({MOE_GOLDEN.stat().st_size} bytes)")
+def main(argv=None):
+    """Regenerate every committed file, or only those named in
+    ``argv`` (``plans``, ``golden``, ``synth``, ``lm``, ``lm_zoo``,
+    ``moe``): a file not named is left byte for byte as it is."""
+    names = set(argv or ()) or {"plans", "golden", "synth", "lm", "lm_zoo",
+                                "moe"}
+    wrote = []
+    if names & {"plans", "golden"}:
+        plans = {stem: reference_plan(stem) for stem in PINS}
+        if "plans" in names:
+            PLANS.mkdir(parents=True, exist_ok=True)
+            for stem, plan in plans.items():
+                plan.save(PLANS / f"{stem}.json")
+                wrote.append(PLANS / f"{stem}.json")
+        if "golden" in names:
+            GOLDEN.parent.mkdir(parents=True, exist_ok=True)
+            np.savez_compressed(GOLDEN, **reference_golden(plans))
+            wrote.append(GOLDEN)
+    if "synth" in names:
+        write_synth_reference(synth.run_sweep())
+        wrote.append(SYNTH_REFERENCE)
+    for name, path, make in (("lm", LM_GOLDEN, lm_reference_golden),
+                             ("lm_zoo", LM_ZOO_GOLDEN,
+                              lm_zoo_reference_golden),
+                             ("moe", MOE_GOLDEN, moe_reference_golden)):
+        if name in names:
+            np.savez_compressed(path, **make())
+            wrote.append(path)
+    for path in wrote:
+        print(f"wrote {path} ({path.stat().st_size} bytes)")
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+    main(sys.argv[1:])

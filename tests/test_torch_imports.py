@@ -87,6 +87,10 @@ SLICE_MODULES = (
     # slice 10: the quantized MoE workload
     "repro_torch.models.moe", "repro_torch.runtime.workloads",
     "repro_torch.configs.qwen3_moe_30b_a3b",
+    # slice 11: the rest of the LM zoo
+    "repro_torch.configs.llama4_maverick_400b_a17b",
+    "repro_torch.configs.jamba_1_5_large_398b",
+    "repro_torch.configs.whisper_medium", "repro_torch.configs.pixtral_12b",
 )
 
 

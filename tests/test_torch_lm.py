@@ -35,7 +35,8 @@ from repro_torch.launch import serve as launch
 from repro_torch.models import attention, build_model, layers, ssm
 from repro_torch.serve import Engine, Request, ServeConfig
 from tests.test_attention import naive_attention
-from tests.test_torch_golden import LM_ARCHS, LM_ENGINE, LM_GOLDEN
+from tests.test_torch_golden import (LM_ARCHS, LM_ENGINE, LM_GOLDEN,
+                                     LM_ZOO_ARCHS, LM_ZOO_GOLDEN)
 
 SLICE_ARCHS = ("llama3.2-3b", "mamba2-1.3b", "gemma2-2b")
 LAYER_TOL, ATTN_TOL, MAMBA_TOL, SLICE_TOL = 1e-5, 2e-4, 2e-5, 2e-3
@@ -404,26 +405,43 @@ def test_engine_sampling_draws_from_its_generator(served):
     assert all(0 <= t < tmodel.cfg.vocab_size for t in outs[0])
 
 
-@pytest.mark.parametrize("arch", LM_ARCHS)
+# every arch's committed reference outputs: the dense and SSM archs in
+# lm_reference.npz, the rest of the zoo in lm_zoo_reference.npz
+GOLDEN_OF = {arch: LM_GOLDEN for arch in LM_ARCHS} \
+    | {arch: LM_ZOO_GOLDEN for arch in LM_ZOO_ARCHS}
+
+
+@pytest.mark.parametrize("arch", list(GOLDEN_OF))
 def test_port_on_cpu_matches_lm_golden(arch):
     """What ``chip_smoke.py`` holds on the card, here on the CPU: the
-    committed reference outputs from the committed parameters."""
+    committed reference outputs from the committed parameters (and
+    modality inputs; decode positions count a vision prefix), and the
+    ``Engine``'s greedy tokens where the file holds them (for the MoE
+    archs, two identical prompts decoding in one wave)."""
     cfg = smoke_config(arch).with_overrides(dtype="float32")
-    with np.load(LM_GOLDEN) as z:
+    with np.load(GOLDEN_OF[arch]) as z:
         g = {k: z[k] for k in z.files if k.startswith(arch + "/")}
     model = build_model(cfg, "cpu")
     params = lm_params_from_numpy(nested_from_flat(g, f"{arch}/params"),
                                   cfg, "cpu")
-    toks = g[f"{arch}/tokens"]
-    logits, _ = model.prefill(params, {"tokens": toks})
+    batch = {"tokens": g[f"{arch}/tokens"]}
+    for name in ("frames", "patches"):
+        if f"{arch}/{name}" in g:
+            batch[name] = g[f"{arch}/{name}"]
+    logits, _ = model.prefill(params, batch)
     _close(logits, g[f"{arch}/prefill_logits"], SLICE_TOL)
     pos = g[f"{arch}/decode_pos"]
-    _, cache = model.prefill(params, {"tokens": toks[:, :pos[0]]})
+    start = batch["tokens"].shape[1] - len(pos)
+    _, cache = model.prefill(params, dict(batch,
+                                          tokens=batch["tokens"][:, :start]))
     cache = _pad_kv(cache, len(pos), torch)
     for i, p in enumerate(pos):
+        t = start + i
         logits, cache = model.decode_step(params, cache,
-                                          toks[:, p:p + 1], int(p))
+                                          batch["tokens"][:, t:t + 1], int(p))
         _close(logits, g[f"{arch}/decode_logits"][i], SLICE_TOL)
+    if f"{arch}/engine_prompts" not in g:
+        return
     reqs = [Request(prompt=[int(t) for t in p], request_id=i)
             for i, p in enumerate(g[f"{arch}/engine_prompts"])]
     Engine(model, params, ServeConfig(
@@ -446,20 +464,8 @@ def test_launcher_serves_lm_on_cpu(arch):
 
 
 # ---------------------------------------------------------------------------
-# what the slice does not take yet, and the parameter carrier
+# the parameter carrier
 # ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("arch,match", [
-    ("qwen3-moe-30b-a3b", "MoE layer is ported.*LM-zoo item"),
-    ("jamba-1.5-large-398b", "MoE layer is ported.*LM-zoo item"),
-    ("whisper-medium", "encoder-decoder.*LM-zoo item"),
-    ("pixtral-12b", "encoder-decoder.*LM-zoo item")],
-    ids=["qwen3-moe-30b-a3b", "jamba-1.5-large-398b", "whisper-medium",
-         "pixtral-12b"])
-def test_unported_families_raise(arch, match):
-    with pytest.raises(NotImplementedError, match=match):
-        build_model(smoke_config(arch), "cpu")
-
 
 def test_params_from_numpy_takes_bf16_and_checks_shapes():
     cfg = ref_smoke_config("llama3.2-3b")                    # bfloat16
