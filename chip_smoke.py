@@ -191,10 +191,37 @@ order (any mismatch or error raises and the exit code is non-zero):
    bf16 against its plain version at the zoo's shapes (1, 512, 32, 128)
    kv 4 and (1, 512, 16, 64) kv 16, timed as in phase 10; each part's
    seconds printed;
-13. one JSON line ``{"kernels": [...]}`` (with the fleet and recovery
+13. training (K7, K8 forward; their ``torch.autograd.Function``s'
+   backwards, torch ops): Llama-3.2-3B, Mamba-2-1.3B and Qwen3-MoE at
+   ``smoke_config`` in float32 against the JAX reference's golden file
+   ``src/repro_torch/golden/train_reference.npz`` (loss, nll and aux
+   within 1e-5 relative, every gradient leaf within relative L2 1e-4,
+   the attention projections and the conv taps among them, the
+   parameters after one ``make_train_step`` step with float32 and with
+   int8 AdamW states within relative L2 1e-5; K8 and K7 launched for
+   each layer's forward and its remat recompute); then Llama-3.2-3B (28
+   layers) and Mamba-2-1.3B (48 layers) at full width and depth, bf16,
+   seeded weights drawn on the card: 4 steps of ``make_train_step`` over
+   ``batch_at`` batches of 2 x 2048 tokens with float32 states, the
+   counters set to 0 just before and read just after (every loss
+   finite, every parameter leaf with a non-zero gradient at step 1, K8
+   or K7 launched the derived count every step), ms per step, tokens/s,
+   peak memory, a profiler trace of one step (device ms, idle share,
+   device ops, the kernel's share), one step with int8 states and its
+   peak memory; Llama-3.2-3B cut to 2 layers, a 1 x 256 batch, its loss
+   and gradients on the card (kernels) against the CPU (plain versions)
+   within 1e-2 and relative L2 5e-2; ``train()`` at smoke size with
+   a preemption (``fail_at_step``) and a resume equal to an
+   uninterrupted run within 1e-5, its checkpoint restored into a fresh
+   template; and K8 and K7 at the two full-width steps' shapes against
+   their plain versions, timed as in phase 10, with each one's forward
+   and backward beside the library call's; each part's seconds
+   printed;
+14. one JSON line ``{"kernels": [...]}`` (with the fleet and recovery
    results under ``"fleet"`` and ``"recovery"``, the MoE workload's
-   under ``"moe"``, the LM zoo's under ``"lm_zoo"``), the nvidia-smi
-   line, and last ``{"ok": true, "device": {...}}``.
+   under ``"moe"``, the LM zoo's under ``"lm_zoo"``, training's under
+   ``"train"``), the nvidia-smi line, and last ``{"ok": true,
+   "device": {...}}``.
 
 It exits non-zero without a result where ``torch.cuda.is_available()``
 is false, or where the port's sources are not beside it.
@@ -361,6 +388,32 @@ ZOO_CUTS = (("qwen3-moe-30b-a3b", 4), ("llama4-maverick-400b-a17b", 2),
             ("whisper-medium", None), ("pixtral-12b", None))
 K8_ZOO_SHAPES = {"qwen3-moe-30b-a3b": (1, 512, 32, 4, 128),
                  "whisper-medium decoder": (1, 512, 16, 16, 64)}
+# the training phase: the three smoke archs of the JAX reference's
+# training golden (loss, every gradient leaf, one AdamW step with float32
+# and with int8 states); Llama-3.2-3B and Mamba-2-1.3B at full width and
+# depth, bf16, TRAIN_STEPS steps of batch_at traffic with float32 AdamW
+# states, then one with int8 states; Llama-3.2-3B cut to TRAIN_CUT_LAYERS
+# layers, the card's loss and gradients (kernels) against the CPU's
+# (plain versions); the fault-tolerant loop at smoke size
+TRAIN_GOLDEN = ROOT / "src" / "repro_torch" / "golden" \
+    / "train_reference.npz"
+TRAIN_GOLDEN_ARCHS = ("llama3.2-3b", "mamba2-1.3b", "qwen3-moe-30b-a3b")
+TRAIN_STATES = ("float32", "int8")
+TRAIN_LOSS_RTOL, TRAIN_GRAD_REL_L2, TRAIN_STEP_REL_L2 = 1e-5, 1e-4, 1e-5
+TRAIN_FULL_ARCHS = ("llama3.2-3b", "mamba2-1.3b")
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR, TRAIN_SEED = 2, 2048, 4, \
+    3e-4, 13
+TRAIN_CUT_LAYERS, TRAIN_CUT_SEQ, TRAIN_CUT_LOSS_RTOL = 2, 256, 1e-2
+TRAIN_LOOP_STEPS, TRAIN_LOOP_FAIL_AT, TRAIN_LOOP_CKPT_EVERY = 12, 6, 4
+# a training step's device time by kind of kernel, by name (the first
+# kind whose marks a kernel's name holds)
+TRAIN_KERNEL_KINDS = (
+    ("flash_attention", ("flash_attention",)),
+    ("causal_conv1d", ("causal_conv1d",)),
+    ("gemm", ("gemm", "nvjet", "cutlass", "sm90_xmma", "cublas")),
+    ("reduce", ("reduce", "softmax", "scan", "norm")),
+    ("copy", ("copy", "cat", "index", "gather", "scatter")),
+    ("elementwise", ("elementwise",)))
 # the numbers of a timed case that its kernel's headline entry carries
 TIMES = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
          "library_ms", "library_device_ms")
@@ -1835,19 +1888,13 @@ def check_lm_kernels(entries):
     card at the full-width shapes, timed, into their ``entries``."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
     from repro_torch.configs import get_config, smoke_config
-    from repro_torch.kernels import conv1d
     from repro_torch.models.ssm import ssm_dims
 
     torch.backends.cuda.matmul.allow_tf32 = False
     for k in ("causal_conv1d", "flash_attention"):
         entries.setdefault(k, kernel_entry(k))
     g = torch.Generator(device="cuda").manual_seed(8)
-
-    def randn(*shape):
-        return torch.randn(*shape, generator=g, device="cuda") \
-            .to(torch.bfloat16)
 
     # the launches of one Mamba-2-1.3B layer on the serving path: the x
     # conv over `inner` channels and the B and C convs over `gn` each; a
@@ -1865,49 +1912,14 @@ def check_lm_kernels(entries):
     e["per_layer"] = {ph: {"ms": 0.0, "device_ms": 0.0}
                       for ph in ("prefill", "decode")}
     for phase, b, s, c, reps in conv_cases:
-        x, w = randn(b, s, c), randn(kk, c)
-        st = randn(b, kk - 1, c) if phase == "decode" else None
-        y = conv1d.causal_conv1d(x, w, st)
-        torch.cuda.synchronize()
-        y_plain = conv1d.causal_conv1d_plain(x, w, st)
-        err = float((y - y_plain).abs().max())
-        eq = torch.equal(y, y_plain)
-        print(f"  causal_conv1d {phase} ({b},{s},{c}) K{kk} "
-              f"state={st is not None} bf16: equal={eq} max_abs_err={err}")
-        if not eq:
-            raise AssertionError(f"causal_conv1d disagrees with its plain "
-                                 f"version at ({b},{s},{c}): {err}")
-        e["max_abs_err"] = max(e["max_abs_err"], err)
-        ms = time_ms(lambda: conv1d.causal_conv1d(x, w, st), 200, warmup=10)
-        plain_ms = time_ms(lambda: conv1d.causal_conv1d_plain(x, w, st), 20,
-                           warmup=2)
-        dev_ms = device_ms(lambda: conv1d.causal_conv1d(x, w, st),
-                           "causal_conv1d_kernel")
-        xpad = torch.cat([st if st is not None
-                          else x.new_zeros(b, kk - 1, c), x], 1) \
-            .transpose(1, 2).contiguous()
-        wt = w.t().contiguous()[:, None, :]
-
-        def lib():
-            return F.conv1d(xpad, wt, groups=c)
-        lib_ms = time_ms(lib, 200, warmup=10)
-        lib_dev_ms = device_ms(lib)
-        b_ms, b_by = _lm_bound(_nbytes(x, w, st) + y.numel() * 4,
-                               2 * b * s * c * kk, FP32_FLOPS_PER_S)
-        case = {"phase": phase, "shape": [b, s, c, kk],
-                "state": st is not None, "per_layer": reps, "ms": ms,
-                "device_ms": dev_ms, "plain_ms": plain_ms,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                "library_device_ms": lib_dev_ms}
-        print(f"    ms={ms:.6f} device_ms={dev_ms} plain_ms={plain_ms:.6f} "
-              f"bound_ms={b_ms:.6f} ({b_by}) library_ms={lib_ms:.6f} "
-              f"library_device_ms={lib_dev_ms}")
-        e["cases"].append(case)
+        case = k7_case(e, g, phase, b, s, c, kk,
+                       with_state=phase == "decode")
+        case["per_layer"] = reps
         layer = e["per_layer"][phase]
-        layer["ms"] += reps * ms
-        layer["device_ms"] = None if dev_ms is None \
+        layer["ms"] += reps * case["ms"]
+        layer["device_ms"] = None if case["device_ms"] is None \
             or layer["device_ms"] is None \
-            else layer["device_ms"] + reps * dev_ms
+            else layer["device_ms"] + reps * case["device_ms"]
         if phase == "prefill" and c == inner:   # the headline: conv_x
             e.update({k_: case[k_] for k_ in TIMES + ("shape",)})
     print(f"  per Mamba layer (conv_x + conv_B + conv_C): "
@@ -1919,7 +1931,7 @@ def check_lm_kernels(entries):
     e = entries["flash_attention"]
     e["instantiations"] = {}
     # the Llama-3.2-3B prefill (bf16) and the smoke golden's first prefill
-    # (float32: the only float32 K8 launches of the script)
+    # (float32: the instantiation the float32 goldens run)
     with np.load(LM_GOLDEN) as z:
         gb, gs = z["llama3.2-3b/tokens"].shape
     scfg = smoke_config("llama3.2-3b")
@@ -1933,6 +1945,59 @@ def check_lm_kernels(entries):
             e["instantiations"][case["dtype"]] = case
         if s == 512:
             e.update({k_: case[k_] for k_ in TIMES + ("shape",)})
+
+
+def k7_case(e, g, phase, b, s, c, kk, *, with_state):
+    """K7 on bf16 x (b, s, c) with K = kk taps (and a state where asked)
+    on the card: the kernel equal to its plain version, then timed as
+    phase 3 times a kernel beside a depthwise ``F.conv1d``; the case is
+    added to the kernel's entry ``e`` and returned."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import conv1d
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda") \
+            .to(torch.bfloat16)
+    x, w = randn(b, s, c), randn(kk, c)
+    st = randn(b, kk - 1, c) if with_state else None
+    y = conv1d.causal_conv1d(x, w, st)
+    torch.cuda.synchronize()
+    y_plain = conv1d.causal_conv1d_plain(x, w, st)
+    err = float((y - y_plain).abs().max())
+    eq = torch.equal(y, y_plain)
+    print(f"  causal_conv1d {phase} ({b},{s},{c}) K{kk} "
+          f"state={st is not None} bf16: equal={eq} max_abs_err={err}")
+    if not eq:
+        raise AssertionError(f"causal_conv1d disagrees with its plain "
+                             f"version at ({b},{s},{c}): {err}")
+    e["max_abs_err"] = max(e["max_abs_err"], err)
+    ms = time_ms(lambda: conv1d.causal_conv1d(x, w, st), 200, warmup=10)
+    plain_ms = time_ms(lambda: conv1d.causal_conv1d_plain(x, w, st), 20,
+                       warmup=2)
+    dev_ms = device_ms(lambda: conv1d.causal_conv1d(x, w, st),
+                       "causal_conv1d_kernel")
+    xpad = torch.cat([st if st is not None
+                      else x.new_zeros(b, kk - 1, c), x], 1) \
+        .transpose(1, 2).contiguous()
+    wt = w.t().contiguous()[:, None, :]
+
+    def lib():
+        return F.conv1d(xpad, wt, groups=c)
+    lib_ms = time_ms(lib, 200, warmup=10)
+    lib_dev_ms = device_ms(lib)
+    b_ms, b_by = _lm_bound(_nbytes(x, w, st) + y.numel() * 4,
+                           2 * b * s * c * kk, FP32_FLOPS_PER_S)
+    case = {"phase": phase, "shape": [b, s, c, kk],
+            "state": st is not None, "ms": ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "library_device_ms": lib_dev_ms}
+    print(f"    ms={ms:.6f} device_ms={dev_ms} plain_ms={plain_ms:.6f} "
+          f"bound_ms={b_ms:.6f} ({b_by}) library_ms={lib_ms:.6f} "
+          f"library_device_ms={lib_dev_ms}")
+    e["cases"].append(case)
+    return case
 
 
 def k8_case(e, g, b, s, h, kh, d, dtype):
@@ -2894,6 +2959,496 @@ def lm_zoo(entries, smi):
     return out
 
 
+def _flat_np(tree_):
+    from repro_torch import tree
+    return {k: v.detach().float().cpu().numpy()
+            for k, v in tree.flatten(tree_).items()}
+
+
+def _per_step_launches(cfg):
+    """K8's and K7's launches per training step of ``cfg`` (one batch, no
+    microbatches): each layer's forward, and its recompute in the
+    backward (every sublayer is rematerialized; the backwards launch no
+    kernel)."""
+    attn, mamba = _attention_and_mamba_layers(cfg)
+    return {"flash_attention": 2 * attn,
+            "causal_conv1d": 2 * K7_PER_MAMBA_LAYER * mamba}
+
+
+def train_golden(entries):
+    """Phase 13 (a): the three archs of ``TRAIN_GOLDEN`` at smoke size,
+    float32, on the card (K8's float32 and K7's kernels in the forward,
+    their ``Function``s' backwards) against the JAX reference: loss,
+    nll and aux within ``TRAIN_LOSS_RTOL``, every gradient leaf within
+    ``TRAIN_GRAD_REL_L2``, the parameters after one ``make_train_step``
+    step with float32 and with int8 AdamW states within
+    ``TRAIN_STEP_REL_L2``; the kernels launched as
+    ``_per_step_launches`` says, per step."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels import conv1d, flash_attention as fa
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.train.step import loss_and_grads, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with np.load(TRAIN_GOLDEN) as z:
+        golden = {k: z[k] for k in z.files}
+    out = {}
+    for arch in TRAIN_GOLDEN_ARCHS:
+        cfg = smoke_config(arch).with_overrides(dtype="float32")
+        model = build_model(cfg, "cuda")
+        batch = {"tokens": golden[f"{arch}/tokens"],
+                 "labels": golden[f"{arch}/labels"]}
+        want_n = _per_step_launches(cfg)
+        want = {k for k, v in want_n.items() if v}
+
+        def run():
+            counts = []
+
+            def counted(fn):
+                k8, k7 = (fa.flash_attention.launches,
+                          conv1d.causal_conv1d.launches)
+                res = fn()
+                counts.append({"flash_attention":
+                               fa.flash_attention.launches - k8,
+                               "causal_conv1d":
+                               conv1d.causal_conv1d.launches - k7})
+                return res
+            params = _lm_golden_params(golden, arch, cfg, "cuda")
+            loss, metrics, grads = counted(
+                lambda: loss_and_grads(model, params, batch))
+            stepped = {}
+            for state in TRAIN_STATES:
+                opt = AdamWConfig(state_dtype=state)
+                p = _lm_golden_params(golden, arch, cfg, "cuda")
+                p, _, _ = counted(lambda: make_train_step(model, opt)(
+                    p, adamw_init(p, opt), batch))
+                stepped[state] = _flat_np(p)
+            return (loss, metrics, float(global_norm(grads)),
+                    _flat_np(grads), stepped, counts)
+
+        loss, metrics, gnorm, grads, stepped, counts = drive(
+            entries, f"train golden {arch}", want, run)
+        res = {"loss": float(loss), "golden_loss": float(
+            golden[f"{arch}/loss"]), "launches_per_step": counts}
+        errs = {"loss": abs(float(loss) / float(golden[f"{arch}/loss"])
+                            - 1),
+                "grad_norm": abs(gnorm / float(golden[f"{arch}/grad_norm"])
+                                 - 1)}
+        for k in ("nll", "aux"):
+            ref = float(golden[f"{arch}/{k}"])
+            errs[k] = abs(float(metrics[k]) - ref) / max(abs(ref), 1e-30)
+        names = sorted(k for k in golden if k.startswith(f"{arch}/grads/"))
+        if sorted(f"{arch}/grads/{k}" for k in grads) != names:
+            raise AssertionError(f"{arch}: gradient leaves differ from the "
+                                 f"golden's")
+        grad_err = {k: _rel_l2(v, golden[f"{arch}/grads/{k}"])
+                    for k, v in grads.items()}
+        step_err = {state: max(_rel_l2(v, golden[
+            f"{arch}/step_{state}/{k}"]) for k, v in flat.items())
+            for state, flat in stepped.items()}
+        res.update({"rel_err": errs, "grad_rel_l2_max": max(
+            grad_err.values()), "grad_rel_l2_worst": max(
+            grad_err, key=grad_err.get), "step_rel_l2_max": step_err,
+            # the leaves whose gradients run through K8's and K7's
+            # backwards
+            "kernel_grad_rel_l2": {k: v for k, v in grad_err.items() if
+                                   k.rsplit("/", 1)[-1] in (
+                                       "wq", "wk", "wv", "conv_x",
+                                       "conv_B", "conv_C")}})
+        print(f"[train golden] {arch} float32 on the card: "
+              f"{json.dumps(res)}")
+        bad = [k for k, v in errs.items() if v > TRAIN_LOSS_RTOL
+               and not (k == "aux" and float(golden[f"{arch}/aux"]) == 0
+                        and float(metrics["aux"]) == 0)]
+        bad += [k for k, v in grad_err.items() if v > TRAIN_GRAD_REL_L2]
+        bad += [s_ for s_, v in step_err.items() if v > TRAIN_STEP_REL_L2]
+        if bad:
+            raise AssertionError(f"{arch}: the card's training differs from "
+                                 f"the JAX golden at {bad}")
+        if not res["kernel_grad_rel_l2"]:
+            raise AssertionError(f"{arch}: no gradient through K7 or K8")
+        if any(c != want_n for c in counts):
+            raise AssertionError(f"{arch}: launches per step {counts}, want "
+                                 f"{want_n} (forward + remat recompute)")
+        out[arch] = res
+        del model
+    return out
+
+
+def _step_profile(step_fn, params, state, batch, kernel):
+    """Device time, device ops and ``kernel``'s share of the device time
+    of one training step, from a profiler trace.  Returns (the numbers or
+    None where the trace holds no device time, params, state)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        params, state, m = step_fn(params, state, batch)
+        torch.cuda.synchronize()
+    traced_ms = (time.perf_counter() - t0) * 1e3
+    by_name, n_device = {}, 0
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CPU and ev.device_time_total > 0:
+            by_name[ev.name] = by_name.get(ev.name, 0.0) \
+                + ev.device_time_total
+            n_device += 1
+    if not by_name:
+        print("[train profile] the trace holds no device time: not "
+              "measured")
+        return None, params, state
+    dev_ms = sum(by_name.values()) / 1e3
+    k_ms = sum(v for n, v in by_name.items() if kernel in n) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    by_kind = {}
+    for n, v in by_name.items():
+        kind = next((k for k, marks in TRAIN_KERNEL_KINDS if any(
+            mark in n for mark in marks)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + v / 1e3
+    return ({"device_ms": dev_ms, "device_ops": n_device,
+             "traced_wall_ms": traced_ms, "kernel": kernel,
+             "kernel_device_ms": k_ms, "kernel_share": k_ms / dev_ms,
+             "loss": float(m["loss"]), "by_kind_ms": by_kind,
+             "top_ms": [[k[:80], v / 1e3] for k, v in top]},
+            params, state)
+
+
+def train_full_width(entries, smi):
+    """Phase 13 (b): each of ``TRAIN_FULL_ARCHS`` at full width and depth,
+    bf16, seeded weights drawn on the card: TRAIN_STEPS steps of
+    ``make_train_step`` (float32 AdamW states, lr TRAIN_LR) over
+    ``batch_at`` batches of TRAIN_BATCH x TRAIN_SEQ, the counters set to 0
+    just before and read just after: every loss finite, every parameter
+    leaf's gradient non-zero at step 1 (the float32 first moment after
+    one step is (1 - b1) x the clipped gradient), K8/K7 launched
+    ``_per_step_launches`` times a step; ms per step by CUDA events,
+    tokens/s, peak memory, one more step under the profiler (device ms,
+    idle share against the untraced step, device ops, the kernel's
+    share), then one step with int8 states and its peak memory.  Returns
+    the numbers."""
+    import math
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, batch_at
+    from repro_torch.kernels import conv1d, flash_attention as fa
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train.step import make_train_step
+
+    out = {}
+    for arch in TRAIN_FULL_ARCHS:
+        cfg = get_config(arch)
+        want_n = _per_step_launches(cfg)
+        kernel = "flash_attention" if want_n["flash_attention"] \
+            else "causal_conv1d"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(cfg, "cuda")
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device="cuda")
+                            .manual_seed(TRAIN_SEED))
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t0
+        n_params = sum(x.numel() for x in tree.leaves(params))
+        opt = AdamWConfig()
+        data = DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+        step_fn = make_train_step(model, opt, lr=TRAIN_LR)
+
+        def run():
+            state = adamw_init(params, opt)
+            rows = []
+            for k in range(TRAIN_STEPS):
+                batch = batch_at(data, k)
+                before = (fa.flash_attention.launches,
+                          conv1d.causal_conv1d.launches)
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                _, state, m = step_fn(params, state, batch)
+                stop.record()
+                torch.cuda.synchronize()
+                row = {"step": k + 1, "ms": start.elapsed_time(stop),
+                       "loss": float(m["loss"]), "nll": float(m["nll"]),
+                       "grad_norm": float(m["grad_norm"]),
+                       "launches": {
+                           "flash_attention":
+                               fa.flash_attention.launches - before[0],
+                           "causal_conv1d":
+                               conv1d.causal_conv1d.launches - before[1]}}
+                if k == 0:
+                    norms = {n: float(v.norm())
+                             for n, v in tree.flatten(state["m"]).items()}
+                    row["zero_grad_leaves"] = sorted(
+                        n for n, v in norms.items() if not v > 0)
+                    row["leaves"] = len(norms)
+                rows.append(row)
+                print(f"[train full width] {arch} step {k + 1}: "
+                      f"{json.dumps(row)}")
+            return rows, state
+
+        rows, state = drive(entries, f"train full width {arch}",
+                            {kernel}, run)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        steady = [r["ms"] for r in rows[1:]]
+        ms = sum(steady) / len(steady)
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        # 6 x params x tokens for the forward and backward products, 2 x
+        # more for the rematerialized forward, bf16 on the tensor cores
+        model_flops = 8 * n_params * tokens
+        prof, _, state = _step_profile(step_fn, params, state,
+                                       batch_at(data, TRAIN_STEPS), kernel)
+        if prof is not None:
+            prof["idle_share"] = 1.0 - prof["device_ms"] / ms
+        del state
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        opt8 = AdamWConfig(state_dtype="int8")
+        state8 = adamw_init(params, opt8)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, state8, m8 = make_train_step(model, opt8, lr=TRAIN_LR)(
+            params, state8, batch_at(data, TRAIN_STEPS + 1))
+        stop.record()
+        torch.cuda.synchronize()
+        int8 = {"ms": start.elapsed_time(stop), "loss": float(m8["loss"]),
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del state8
+        res = {"params": n_params, "layers": cfg.n_layers,
+               "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "lr": TRAIN_LR,
+               "draw_s": draw_s, "steps": rows, "ms_per_step": ms,
+               "tokens_per_s": tokens / ms * 1e3,
+               "peak_memory_gb": peak_gb,
+               "launches_per_step_want": want_n,
+               "model_flops_per_step": model_flops,
+               "bound_ms": model_flops / BF16_FLOPS_PER_S * 1e3,
+               "bound_by": "operations", "profile": prof,
+               "int8_step": int8, "card": smi}
+        print(f"[train full width] {arch}: {json.dumps(res)}")
+        bad = [r["step"] for r in rows if not math.isfinite(r["loss"])]
+        if bad or not math.isfinite(int8["loss"]):
+            raise AssertionError(f"{arch}: a loss is not finite ({rows}, "
+                                 f"{int8})")
+        if rows[0]["zero_grad_leaves"]:
+            raise AssertionError(f"{arch}: zero gradients at step 1 in "
+                                 f"{rows[0]['zero_grad_leaves']}")
+        if any(r["launches"] != want_n for r in rows):
+            raise AssertionError(f"{arch}: launches per step "
+                                 f"{[r['launches'] for r in rows]}, want "
+                                 f"{want_n}")
+        out[arch] = res
+        del params, model, step_fn
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_cut(entries):
+    """Phase 13 (c): Llama-3.2-3B at full width cut to TRAIN_CUT_LAYERS
+    layers, bf16, one batch of 1 x TRAIN_CUT_SEQ: the loss and every
+    gradient leaf on the card (kernels) against the same parameters on
+    the CPU (plain versions): loss within TRAIN_CUT_LOSS_RTOL, each leaf
+    within LM_CUT_REL_L2."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train.step import loss_and_grads
+
+    cfg = get_config("llama3.2-3b").with_overrides(n_layers=TRAIN_CUT_LAYERS)
+    model = build_model(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(3))
+    toks = np.random.default_rng(4).integers(
+        1, cfg.vocab_size, (1, TRAIN_CUT_SEQ + 1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    loss, _, grads = drive(entries, "train cut llama3.2-3b",
+                           {"flash_attention"},
+                           lambda: loss_and_grads(model, params, batch))
+    t0 = time.perf_counter()
+    cpu_loss, _, cpu_grads = loss_and_grads(
+        build_model(cfg, "cpu"), _tree_map(lambda t: t.cpu(), params), batch)
+    cpu_s = time.perf_counter() - t0
+    a, b = _flat_np(grads), _flat_np(cpu_grads)
+    errs = {k: _rel_l2(a[k], b[k]) for k in b}
+    res = {"layers": TRAIN_CUT_LAYERS, "seq": TRAIN_CUT_SEQ,
+           "loss": float(loss), "cpu_loss": float(cpu_loss),
+           "loss_rel_err": abs(float(loss) / float(cpu_loss) - 1),
+           "grad_rel_l2": errs, "cpu_s": cpu_s}
+    print(f"[train cut] llama3.2-3b {TRAIN_CUT_LAYERS} layers, seq "
+          f"{TRAIN_CUT_SEQ}, card (kernels) vs CPU (plain): "
+          f"{json.dumps(res)}")
+    bad = {k: v for k, v in errs.items() if not v < LM_CUT_REL_L2}
+    if bad or not res["loss_rel_err"] < TRAIN_CUT_LOSS_RTOL:
+        raise AssertionError(f"the card's training differs from the CPU's: "
+                             f"loss {res['loss_rel_err']}, leaves {bad}")
+    del params, grads, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_loop_on_card(entries, ckpt_root):
+    """Phase 13 (d): ``train()`` on the card at smoke size (Llama-3.2-3B,
+    float32): an uninterrupted run of TRAIN_LOOP_STEPS steps, then a run
+    preempted at TRAIN_LOOP_FAIL_AT (``fail_at_step``: a checkpoint of
+    the steps done) and resumed from its newest checkpoint; the resumed
+    run's last loss and parameters within 1e-5 of the uninterrupted
+    run's, and its final checkpoint restored into a fresh template."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import DataConfig
+    from repro_torch.models import build_model
+    from repro_torch.train.checkpoint import Checkpointer
+    from repro_torch.train.loop import TrainConfig, train
+
+    cfg = smoke_config("llama3.2-3b").with_overrides(dtype="float32")
+    model = build_model(cfg, "cuda")
+    data = DataConfig(cfg.vocab_size, 32, 4)
+    base = TrainConfig(steps=TRAIN_LOOP_STEPS, lr=3e-3, log_every=4,
+                       ckpt_every=TRAIN_LOOP_CKPT_EVERY,
+                       ckpt_dir=str(ckpt_root / "whole"))
+
+    def run():
+        whole = train(model, data, base, log=lambda _: None)
+        cut = dataclasses.replace(base, ckpt_dir=str(ckpt_root / "cut"),
+                                  fail_at_step=TRAIN_LOOP_FAIL_AT)
+        try:
+            train(model, data, cut, log=lambda _: None)
+        except RuntimeError as e:
+            if "simulated preemption" not in str(e):
+                raise
+        else:
+            raise AssertionError("the preempted run did not stop")
+        saved = Checkpointer(cut.ckpt_dir).latest_step()
+        lines = []
+        resumed = train(model, data, dataclasses.replace(
+            cut, fail_at_step=None), log=lines.append)
+        return whole, saved, lines, resumed
+
+    (p_w, _, h_w), saved, lines, (p_r, _, h_r) = drive(
+        entries, "train loop", {"flash_attention"}, run)
+    param_err = max(float((a - b).abs().max()) for a, b in zip(
+        tree.leaves(p_w), tree.leaves(p_r)))
+    _, restored = Checkpointer(str(ckpt_root / "cut")).restore(
+        {"params": model.init(torch.Generator(device="cuda")
+                              .manual_seed(9))})
+    restored_equal = all(torch.equal(a, b) for a, b in zip(
+        tree.leaves(restored["params"]), tree.leaves(p_r)))
+    res = {"steps": TRAIN_LOOP_STEPS, "preempted_at": TRAIN_LOOP_FAIL_AT,
+           "saved_at_preemption": saved, "resumed_log": lines[0],
+           "first_loss": h_w[0]["loss"], "last_loss": h_w[-1]["loss"],
+           "resumed_last_loss": h_r[-1]["loss"],
+           "param_max_abs_diff": param_err,
+           "restored_equal": restored_equal,
+           "p50_ms": h_w[-1]["p50_ms"], "p95_ms": h_w[-1]["p95_ms"]}
+    print(f"[train loop] on the card: {json.dumps(res)}")
+    if not (saved == TRAIN_LOOP_FAIL_AT
+            and lines[0] == f"[train] resumed from step {saved}"
+            and abs(res["resumed_last_loss"] - res["last_loss"])
+            <= 1e-5 * abs(res["last_loss"]) and param_err <= 1e-5
+            and restored_equal and res["last_loss"] < res["first_loss"]):
+        raise AssertionError(f"the loop on the card: {res}")
+    return res
+
+
+def train_kernel_shapes(entries):
+    """Phase 13 (e): K8 at Llama-3.2-3B's training shape (TRAIN_BATCH x
+    TRAIN_SEQ, 24 heads, kv 8, head dim 128, causal, bf16) and K7 at
+    Mamba-2-1.3B's (conv_x: TRAIN_BATCH x TRAIN_SEQ x 4096, K = 4, bf16,
+    no state) against their plain versions, timed as in phase 10; then
+    each wrapper's forward and backward through its
+    ``torch.autograd.Function`` (ms by CUDA events, the gradients of
+    every input) beside the library call's
+    (``F.scaled_dot_product_attention``, a depthwise ``F.conv1d``).
+    Returns the numbers."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import conv1d, flash_attention as fa
+    from repro_torch.models.ssm import ssm_dims
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    lcfg, mcfg = get_config("llama3.2-3b"), get_config("mamba2-1.3b")
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    h, kh, d = lcfg.n_heads, lcfg.n_kv_heads, lcfg.head_dim
+    print("[train kernels] flash_attention at Llama-3.2-3B's training "
+          "shape")
+    k8 = k8_case(entries["flash_attention"], g, b, s, h, kh, d,
+                 torch.bfloat16)
+    q, k, v = (torch.randn(b, s, n, d, generator=g, device="cuda")
+               .to(torch.bfloat16).requires_grad_() for n in (h, kh, kh))
+    dout = torch.randn(b, s, h, d, generator=g, device="cuda") \
+        .to(torch.bfloat16)
+    qt, kt, vt = (t.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    doutt = dout.transpose(1, 2).contiguous()
+
+    def k8_fwd_bwd():
+        q.grad = k.grad = v.grad = None
+        fa.flash_attention(q, k, v).backward(dout)
+
+    def sdpa_fwd_bwd():
+        qt.grad = kt.grad = vt.grad = None
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                       enable_gqa=True).backward(doutt)
+    k8["fwd_bwd_ms"] = time_ms(k8_fwd_bwd, 10, warmup=2)
+    k8["library_fwd_bwd_ms"] = time_ms(sdpa_fwd_bwd, 10, warmup=2)
+
+    inner, _ = ssm_dims(mcfg)
+    kk = mcfg.ssm.conv_kernel
+    print("[train kernels] causal_conv1d at Mamba-2-1.3B's training shape")
+    k7 = k7_case(entries["causal_conv1d"], g, "train", b, s, inner, kk,
+                 with_state=False)
+    x = torch.randn(b, s, inner, generator=g, device="cuda") \
+        .to(torch.bfloat16).requires_grad_()
+    w = torch.randn(kk, inner, generator=g, device="cuda") \
+        .to(torch.bfloat16).requires_grad_()
+    dy = torch.randn(b, s, inner, generator=g, device="cuda")
+    xpad = torch.nn.functional.pad(x.detach(), (0, 0, kk - 1, 0)) \
+        .transpose(1, 2).contiguous().requires_grad_()
+    wt = w.detach().t().contiguous()[:, None, :].requires_grad_()
+    dyt = dy.to(torch.bfloat16).transpose(1, 2).contiguous()
+
+    def k7_fwd_bwd():
+        x.grad = w.grad = None
+        conv1d.causal_conv1d(x, w).backward(dy)
+
+    def conv_fwd_bwd():
+        xpad.grad = wt.grad = None
+        F.conv1d(xpad, wt, groups=inner).backward(dyt)
+    k7["fwd_bwd_ms"] = time_ms(k7_fwd_bwd, 10, warmup=2)
+    k7["library_fwd_bwd_ms"] = time_ms(conv_fwd_bwd, 10, warmup=2)
+    res = {"flash_attention": k8, "causal_conv1d": k7}
+    print(f"[train kernels] {json.dumps(res)}")
+    return res
+
+
+def train_phase(entries, smi):
+    """Phase 13, training: (a)–(e), each part's seconds printed."""
+    out, seconds = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as tmp:
+        for part, fn in (("golden", lambda: train_golden(entries)),
+                         ("full_width", lambda: train_full_width(entries,
+                                                                 smi)),
+                         ("cut", lambda: train_cut(entries)),
+                         ("loop", lambda: train_loop_on_card(
+                             entries, Path(tmp))),
+                         ("kernels", lambda: train_kernel_shapes(entries))):
+            t0 = time.perf_counter()
+            out[part] = fn()
+            seconds[part] = time.perf_counter() - t0
+            print(f"[train] {part}: {seconds[part]:.1f} s")
+    out["seconds"] = seconds
+    return out
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--warm-start":
         # the recovery phase's fresh process (``_warm_start_process``)
@@ -2965,6 +3520,7 @@ def main() -> int:
         moe = {"golden": moe_golden_on_card(entries, smi),
                "full_width": moe_full_width(entries, smi)}
         zoo = lm_zoo(entries, smi)
+        trained = train_phase(entries, smi)
         keys = ("name", "route", "source", "replaces", "launches",
                 "max_abs_err", "equal") + TIMES + (
                 "shape", "launches_by_path", "cases")
@@ -2978,7 +3534,7 @@ def main() -> int:
                 "gateway": gateway, "fleet": fleet, "recovery": recovery,
                 "lm_k7_per_mamba_layer": entries["causal_conv1d"]["per_layer"],
                 "lm_full_width": lm, "lm_cut_plain_vs_kernel": lm_cut,
-                "moe": moe, "lm_zoo": zoo,
+                "moe": moe, "lm_zoo": zoo, "train": trained,
                 "int32_ops_per_s": int32_rate(), "card": smi}
         print(json.dumps(line))
         print(smi)

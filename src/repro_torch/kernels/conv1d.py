@@ -10,6 +10,15 @@ given, so the same kernel serves prefill at any length and decode at one
 position.  A wrapper runs the plain version for a tensor on the CPU and
 launches the kernel (``csrc/causal_conv1d.cu``) for a tensor on the card
 (or raises); ``causal_conv1d.launches`` counts the launches.
+
+Gradients: where grad is enabled and an input requires it, the call
+goes through ``_CausalConv1d``, a ``torch.autograd.Function`` whose
+forward is the same launch (the plain version on the CPU).  The
+reference has no backward kernel (``jax.grad`` differentiates its
+model's jnp conv); the backward here is torch ops in float32: the
+gradient of the padded input (state ‖ x) is the conv of dy with the
+taps run backwards in time, and dw[j, c] = Σ (state ‖ x)[b, s+j, c] ·
+dy[b, s, c].
 """
 
 from __future__ import annotations
@@ -18,6 +27,7 @@ import ctypes
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import causal_conv1d_ref
@@ -67,8 +77,47 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
     """y[b, s, c] = Σ_j (state ‖ x)[b, s + j, c] · w[j, c] in float32:
     x (B, S, C) and w (K, C) both in float32 or both in bfloat16, state
     (B, K-1, C) in x's dtype or None (zeros) → float32 (B, S, C), before the SiLU.
-    One CUDA launch on the card; the plain version on the CPU."""
+    One CUDA launch on the card; the plain version on the CPU.
+    Differentiable (``_CausalConv1d``) where grad is enabled and an input
+    requires it."""
     _check(x, w, state)
+    tensors = (x, w) if state is None else (x, w, state)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _CausalConv1d.apply(x, w, state)
+    return _forward(x, w, state)
+
+
+class _CausalConv1d(torch.autograd.Function):
+    """K7 with a gradient: the forward launches the kernel, the backward
+    is torch ops in float32."""
+
+    @staticmethod
+    def forward(ctx, x, w, state):
+        ctx.save_for_backward(x, w, state)
+        return _forward(x, w, state)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, state = ctx.saved_tensors
+        k, s = w.shape[0], x.shape[1]
+        dy = dy.float()
+        halo = x.new_zeros((x.shape[0], k - 1, x.shape[2])) \
+            if state is None else state
+        xpad = torch.cat([halo, x], dim=1).float()         # (B, S+K-1, C)
+        wf = w.float()
+        # d xpad[p] = Σ_j dy[p - j] · w[j] over the p - j inside [0, S)
+        dyp = F.pad(dy, (0, 0, k - 1, k - 1))
+        dxpad = sum(dyp[:, k - 1 - j:k - 1 - j + s + k - 1] * wf[j]
+                    for j in range(k))
+        dw = torch.stack([(xpad[:, j:j + s] * dy).sum(dim=(0, 1))
+                          for j in range(k)])
+        dstate = None if state is None else dxpad[:, :k - 1].to(state.dtype)
+        return dxpad[:, k - 1:].to(x.dtype), dw.to(w.dtype), dstate
+
+
+def _forward(x: torch.Tensor, w: torch.Tensor,
+             state: Optional[torch.Tensor]) -> torch.Tensor:
+    """The launch on the card (counted), the plain version on the CPU."""
     if x.device.type == "cpu":
         return causal_conv1d_plain(x, w, state)
     if x.device.type != "cuda":

@@ -15,6 +15,16 @@ raises); ``flash_attention.launches`` counts the launches.  The kernel
 has two instantiations behind one entry, chosen by the dtype: bfloat16
 runs on the tensor cores (P·V as P_hi·V + P_lo·V, so P keeps about 16
 bits), float32 on the CUDA cores.
+
+Gradients: where grad is enabled and an input requires it, the call
+goes through ``_FlashAttention``, a ``torch.autograd.Function`` whose
+forward is the same launch (the plain version on the CPU, so the CPU
+tests run the backward the card runs).  The reference has no backward
+kernel: ``jax.grad`` differentiates its model's chunked einsum
+attention.  The backward here does the same with torch ops: it
+recomputes the model's chunked ``_attend`` one query chunk at a time
+and takes ``torch.autograd.grad`` of it, so it never holds more than
+one chunk's logits.
 """
 
 from __future__ import annotations
@@ -101,8 +111,62 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Dh) in q's dtype (float32 or bfloat16).  One CUDA launch on the card,
     routed by dtype: bfloat16 to the tensor-core kernel, float32 to the
     CUDA-core kernel; a launch the kernel refuses raises and never falls
-    back to the other.  The plain version on the CPU."""
+    back to the other.  The plain version on the CPU.  Differentiable
+    (``_FlashAttention``) where grad is enabled and an input requires
+    it."""
     _check(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal)
+    return _forward(q, k, v, causal)
+
+
+# the query rows one backward chunk recomputes (the model's q_chunk)
+GRAD_CHUNK = 1024
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K8 with a gradient: the forward launches the kernel, the backward
+    recomputes the model's chunked attention in torch ops."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return _forward(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, dout):
+        # models.attention imports this module: import at call time
+        from repro_torch.models.attention import _attend
+        q, k, v = ctx.saved_tensors
+        b, s, h, d = q.shape
+        t, kh = k.shape[1], k.shape[2]
+        col_pos = torch.arange(t, device=q.device)
+        dq = torch.empty_like(q)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        dv = torch.zeros_like(dk)
+        with torch.enable_grad():
+            kr, vr = k.detach().requires_grad_(), v.detach().requires_grad_()
+            for q0 in range(0, s, GRAD_CHUNK):
+                qc = q[:, q0:q0 + GRAD_CHUNK].detach().requires_grad_()
+                c = qc.shape[1]
+                out = _attend(qc.reshape(b, c, kh, h // kh, d), kr, vr,
+                              q0 + torch.arange(c, device=q.device), col_pos,
+                              causal=ctx.causal, window=None, valid_len=None,
+                              cap=None, scale=1.0 / (d ** 0.5))
+                gq, gk, gv = torch.autograd.grad(
+                    out.reshape(b, c, h, d), (qc, kr, vr),
+                    dout[:, q0:q0 + c])
+                dq[:, q0:q0 + c] = gq
+                dk += gk
+                dv += gv
+        return dq, dk.to(k.dtype), dv.to(v.dtype), None
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool) -> torch.Tensor:
+    """The launch on the card (counted), the plain version on the CPU."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
     if q.device.type != "cuda":

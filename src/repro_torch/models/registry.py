@@ -1,12 +1,12 @@
 """Model facade: one object per architecture.
 
-Port of ``repro.models.registry`` for inference: ``Model`` (``init``,
-``init_cache``, ``prefill``, ``decode_step``) and ``build_model``, for
+Port of ``repro.models.registry``: ``Model`` (``init``, ``init_cache``,
+``forward_train``, ``prefill``, ``decode_step``) and ``build_model``, for
 every architecture of the zoo.  The modality frontends are stubs, as in
-the reference: ``patches`` / ``frames`` arrive in the prefill batch as
-precomputed embeddings.  ``forward_train`` waits for ROADMAP's training
-slice, and the dry-run helpers ``init_abstract``, ``cache_abstract`` and
-``input_specs`` for its multi-device and analysis item.
+the reference: ``patches`` / ``frames`` arrive in the batch as
+precomputed embeddings.  The dry-run helpers ``init_abstract``,
+``cache_abstract`` and ``input_specs`` wait for ROADMAP's multi-device
+and analysis item.
 """
 
 from __future__ import annotations
@@ -39,6 +39,9 @@ class Model:
         return tf.init_cache(self.cfg, batch, max_len, enc_len, self.device)
 
     # ---- forwards ------------------------------------------------------
+    def forward_train(self, params, batch):
+        return tf.forward_train(params, batch, self.cfg)
+
     def prefill(self, params, batch):
         return tf.prefill(params, batch, self.cfg)
 

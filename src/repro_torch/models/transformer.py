@@ -1,16 +1,24 @@
 """Unified decoder LM (+ optional encoder for Whisper).
 
-Port of ``repro.models.transformer`` for inference: every family of the
-zoo — dense, MoE MLPs (``models.moe``), Mamba-2 and hybrid stacks, the
-encoder-decoder (Whisper: ``frames``) and the vision prefix (Pixtral:
-``patches``), the modality inputs arriving as precomputed embeddings as
-in the reference.  The stack holds ``n_cycles`` stacked *cycles* (the
-repeating sublayer pattern from the config): every parameter and cache
-leaf leads with an ``n_cycles`` dimension, as the reference's
-``lax.scan`` carries them, and a Python loop walks the cycles.  The
-reference's rematerialization (``jax.checkpoint``) is a training
-concern and has no counterpart in this inference path;
-``forward_train`` waits for the training slice.
+Port of ``repro.models.transformer``: ``forward_train``, ``prefill`` and
+``decode_step`` for every family of the zoo — dense, MoE MLPs
+(``models.moe``), Mamba-2 and hybrid stacks, the encoder-decoder
+(Whisper: ``frames``) and the vision prefix (Pixtral: ``patches``), the
+modality inputs arriving as precomputed embeddings as in the reference.
+The stack holds ``n_cycles`` stacked *cycles* (the repeating sublayer
+pattern from the config): every parameter and cache leaf leads with an
+``n_cycles`` dimension, as the reference's ``lax.scan`` carries them,
+and a Python loop walks the cycles.
+
+Training rematerializes every sublayer, as the reference's
+``jax.checkpoint`` does, with ``torch.utils.checkpoint`` (non-reentrant):
+``remat_policy="full"`` recomputes the whole sublayer in the backward,
+``"save_mixer_out"`` checkpoints the mixer half and the MLP half apart,
+so the mixer's output (the MLP half's input) is kept.  The recompute
+runs the forward again, kernels included.  The loss adds every MoE
+MLP's aux loss; the reference's scan adds only each cycle's last
+sublayer's, which differs where a cycle holds more than one MoE MLP
+(Jamba).
 
 Cache layout (decode): a dictionary ``{"s<j>": {leaf: tensor}}`` whose
 leaves lead with ``n_cycles``.  ``decode_step`` writes each layer's new
@@ -27,6 +35,7 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import (ATTN, LOCAL_ATTN, MAMBA, DENSE, NONE)
 from repro_torch.device import DeviceLike, resolve_device
@@ -35,6 +44,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (const_init, dense_init, embed_init,
                                        init_mlp, mlp, rms_norm, softcap)
+from repro_torch.tree import tree_map
 
 
 # ---------------------------------------------------------------------------
@@ -70,12 +80,6 @@ def _init_enc_layer(gen, cfg):
                         cfg.torch_dtype)}}
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def _copy_into(stack: Dict, tree: Dict, i: int) -> None:
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -92,8 +96,8 @@ def _draw_stacked(draw: Callable[[], Dict], n: int) -> Dict:
     views, with no copy)."""
     first = draw()
     if n == 1:
-        return _tree_map(lambda t: t.unsqueeze(0), first)
-    stack = _tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
+        return tree_map(lambda t: t.unsqueeze(0), first)
+    stack = tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
     _copy_into(stack, first, 0)
     del first
     for i in range(1, n):
@@ -106,6 +110,15 @@ def index_tree(tree, i: int):
     if isinstance(tree, dict):
         return {k: index_tree(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def unstack(tree, n: int):
+    """The ``n`` cycles of a stacked tree (views, no copies), each leaf
+    cut by one ``unbind``: its backward stacks the cycles' gradients
+    once, where indexing every cycle apart would add a zero-padded
+    gradient of the whole stacked leaf per cycle."""
+    parts = tree_map(lambda t: t.unbind(0), tree)
+    return [tree_map(lambda t: t[i], parts) for i in range(n)]
 
 
 def init_params(gen, cfg):
@@ -172,63 +185,119 @@ def init_cache(cfg, batch: int, max_len: int, enc_len: int = 0,
 # forward
 # ---------------------------------------------------------------------------
 
-def _run_sublayer(p, x, cfg, sub, *, mode, cache, cache_pos, enc_out):
-    """mode: 'prefill' | 'decode'.  Returns (x, new cache entries, the
-    MoE MLP's aux loss or None)."""
-    aux = None
+def _mixer(p, x, cfg, sub, *, mode, cache, cache_pos, enc_out):
+    """The first half of a sublayer: its mixer (attention or Mamba) and
+    the cross attention, each with its residual.  Returns (x, new cache
+    entries: none in train mode)."""
     new_cache = {}
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     window = cfg.sliding_window if sub.mixer == LOCAL_ATTN else None
 
     if sub.mixer in (ATTN, LOCAL_ATTN):
-        if mode == "prefill":
+        if mode == "train":
+            y, _ = attn_mod.attention_block(p["attn"], h, cfg, causal=True,
+                                            window=window)
+        elif mode == "prefill":
             y, kv = attn_mod.attention_block(p["attn"], h, cfg, causal=True,
                                              window=window, return_kv=True)
+            new_cache["k"], new_cache["v"] = kv
         else:  # decode
             y, kv = attn_mod.attention_block(
                 p["attn"], h, cfg, window=window,
                 cache_kv=(cache["k"], cache["v"]), cache_pos=cache_pos)
-        new_cache["k"], new_cache["v"] = kv
+            new_cache["k"], new_cache["v"] = kv
         x = x + y
     elif sub.mixer == MAMBA:
-        # prefill starts from empty states ({}: the kernel's zero halo)
-        mcache = ({k: cache[k] for k in ("conv_x", "conv_B", "conv_C", "ssm")}
-                  if mode == "decode" else {})
+        # train keeps no state (None); prefill starts from empty states
+        # ({}: the kernel's zero halo)
+        mcache = None if mode == "train" else (
+            {k: cache[k] for k in ("conv_x", "conv_B", "conv_C", "ssm")}
+            if mode == "decode" else {})
         y, mc = ssm_mod.mamba_block(p["mamba"], h, cfg, cache=mcache)
-        new_cache.update(mc)
+        if mc is not None:
+            new_cache.update(mc)
         x = x + y
 
     if "cross" in p:
         # cross attention over the encoder's output: its K/V are computed
-        # in prefill, written to the cache and read back in decode
+        # in train and prefill (prefill writes them to the cache) and
+        # read back in decode
         h = rms_norm(x, p["ln_x"], cfg.norm_eps)
         if mode == "decode":
             ckv = (cache["ck"], cache["cv"])
         else:
             ckv = attn_mod.init_cross_kv(p["cross"], enc_out, cfg)
-            new_cache["ck"], new_cache["cv"] = ckv
+            if mode == "prefill":
+                new_cache["ck"], new_cache["cv"] = ckv
         y, _ = attn_mod.attention_block(p["cross"], h, cfg, cross_kv=ckv)
         x = x + y
+    return x, new_cache
 
-    if sub.mlp != NONE:
-        h = rms_norm(x, p["ln2"], cfg.norm_eps)
-        if sub.mlp == DENSE:
-            y = mlp(p["mlp"], h, cfg.act)
-        else:
-            y, aux = moe_mod.moe_layer(p["moe"], h, cfg)
-        x = x + y
+
+def _mlp_half(p, x, cfg, sub):
+    """The second half of a sublayer: its MLP with the residual.
+    Returns (x, the MoE MLP's aux loss or None)."""
+    if sub.mlp == NONE:
+        return x, None
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if sub.mlp == DENSE:
+        return x + mlp(p["mlp"], h, cfg.act), None
+    y, aux = moe_mod.moe_layer(p["moe"], h, cfg)
+    return x + y, aux
+
+
+def _run_sublayer(p, x, cfg, sub, *, mode, cache, cache_pos, enc_out):
+    """mode: 'train' | 'prefill' | 'decode'.  Returns (x, new cache
+    entries, the MoE MLP's aux loss or None)."""
+    x, new_cache = _mixer(p, x, cfg, sub, mode=mode, cache=cache,
+                          cache_pos=cache_pos, enc_out=enc_out)
+    x, aux = _mlp_half(p, x, cfg, sub)
     return x, new_cache, aux
 
 
-def _run_stack(params, x, cfg, *, mode, cache, cache_pos=None,
+def _remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward
+    (``jax.checkpoint``'s counterpart) where grad is enabled."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
+def _train_sublayer(p, x, cfg, sub, enc_out):
+    """One sublayer in train mode under ``cfg.remat_policy``.  Returns
+    (x, the MoE MLP's aux loss or None)."""
+    def mixer(p_, x_, enc_):
+        return _mixer(p_, x_, cfg, sub, mode="train", cache=None,
+                      cache_pos=None, enc_out=enc_)[0]
+
+    def mlp_half(p_, x_):
+        return _mlp_half(p_, x_, cfg, sub)
+
+    if cfg.remat_policy == "save_mixer_out":
+        return _remat(mlp_half, p, _remat(mixer, p, x, enc_out))
+    return _remat(lambda p_, x_, enc_: mlp_half(p_, mixer(p_, x_, enc_)),
+                  p, x, enc_out)
+
+
+def _run_stack(params, x, cfg, *, mode, cache=None, cache_pos=None,
                enc_out=None):
-    """Walk the cycle stack, writing each layer's new cache entries into
-    ``cache`` (leaves lead with n_cycles) in place.  Returns x; the MoE
-    MLPs' aux losses are dropped, as prefill and decode drop them."""
-    for i in range(cfg.n_cycles):
-        cyc_params = index_tree(params["stack"], i)
+    """Walk the cycle stack.  Returns (x, aux): in train mode (no cache)
+    aux is the sum of every MoE MLP's aux loss, a float32 scalar; in
+    prefill and decode each layer's new cache entries are written into
+    ``cache`` (leaves lead with n_cycles) in place and aux is None (the
+    aux losses are dropped, as the reference's prefill and decode drop
+    them)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device) \
+        if mode == "train" else None
+    for i, cyc_params in enumerate(unstack(params["stack"], cfg.n_cycles)):
         for j, sub in enumerate(cfg.layer_cycle):
             key = f"s{j}"
+            if mode == "train":
+                x, a = _train_sublayer(cyc_params[key], x, cfg, sub,
+                                       enc_out)
+                if a is not None:
+                    aux = aux + a
+                continue
             sub_cache = index_tree(cache[key], i)
             x, nc, _ = _run_sublayer(cyc_params[key], x, cfg, sub,
                                      mode=mode, cache=sub_cache,
@@ -237,7 +306,7 @@ def _run_stack(params, x, cfg, *, mode, cache, cache_pos=None,
                 dst = sub_cache[name]
                 if val.data_ptr() != dst.data_ptr():
                     dst.copy_(val)
-    return x
+    return x, aux
 
 
 def _tokens(params, tokens) -> torch.Tensor:
@@ -280,8 +349,8 @@ def _encode(params, frames, cfg):
     ang = pos[:, None] * inv[None, :]
     pe = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
     x = frames + pe[None].to(frames.dtype)
-    for i in range(cfg.n_enc_layers):
-        p = index_tree(params["enc_stack"], i)["s0"]
+    for layer in unstack(params["enc_stack"], cfg.n_enc_layers):
+        p = layer["s0"]
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         y, _ = attn_mod.attention_block(p["attn"], h, cfg, causal=False)
         x = x + y
@@ -294,24 +363,55 @@ def _encode(params, frames, cfg):
 # public entry points
 # ---------------------------------------------------------------------------
 
+def _embed_inputs(params, batch, cfg):
+    """The token embeddings with a vision prefix in front, and the
+    encoder's output for an encoder-decoder.  Returns (x, tokens, the
+    prefix's length, enc_out or None)."""
+    tokens = _tokens(params, batch["tokens"])
+    x = _embed(params, tokens, cfg)
+    n_front, enc_out = 0, None
+    if cfg.frontend == "vision":
+        patches = _frontend_input(params, batch, "patches", cfg)
+        n_front = patches.shape[1]
+        x = torch.cat([patches, x], dim=1)
+    if cfg.enc_dec:
+        enc_out = _encode(params, _frontend_input(params, batch, "frames",
+                                                  cfg), cfg)
+    return x, tokens, n_front, enc_out
+
+
+def forward_train(params, batch, cfg):
+    """batch: tokens (B, S), labels (B, S) (below 0: masked), [patches
+    (B, P, D) | frames (B, F, D)].  Returns (loss, metrics): the mean
+    next-token NLL over the valid labels plus the MoE aux losses, and
+    ``nll``, ``aux`` and ``tokens`` (the valid labels' count)."""
+    x, tokens, n_front, enc_out = _embed_inputs(params, batch, cfg)
+    labels = torch.as_tensor(batch["labels"], dtype=torch.int64,
+                             device=tokens.device)
+    x, aux = _run_stack(params, x, cfg, mode="train", enc_out=enc_out)
+    if n_front:
+        x = x[:, n_front:]
+    logits = _logits(params, x, cfg)
+
+    valid = labels >= 0
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    nll = ((logz - gold) * valid).sum() / valid.sum().clamp(min=1)
+    metrics = {"nll": nll, "aux": aux,
+               "tokens": valid.sum().to(torch.int32)}
+    return nll + aux, metrics
+
+
 def prefill(params, batch, cfg):
     """Full-sequence prefill.  batch: tokens (B, S) [, patches (B, P, D)
     | frames (B, F, D)].  Returns (last-position logits (B,V), cache);
     a vision prefix's P positions come first in the cache, so decode
     positions count them."""
-    tokens = _tokens(params, batch["tokens"])
-    x = _embed(params, tokens, cfg)
-    enc_out = None
-    if cfg.frontend == "vision":
-        x = torch.cat([_frontend_input(params, batch, "patches", cfg), x],
-                      dim=1)
-    if cfg.enc_dec:
-        enc_out = _encode(params, _frontend_input(params, batch, "frames",
-                                                  cfg), cfg)
+    x, tokens, _, enc_out = _embed_inputs(params, batch, cfg)
     cache = init_cache(cfg, tokens.shape[0], x.shape[1],
                        0 if enc_out is None else enc_out.shape[1], x.device)
-    x = _run_stack(params, x, cfg, mode="prefill", cache=cache,
-                   enc_out=enc_out)
+    x, _ = _run_stack(params, x, cfg, mode="prefill", cache=cache,
+                      enc_out=enc_out)
     logits = _logits(params, x[:, -1:], cfg)
     return logits[:, 0], cache
 
@@ -320,7 +420,7 @@ def decode_step(params, cache, token, pos, cfg):
     """One decode step.  token: (B,1) ints; pos: int (write slot).
     Returns (logits (B,V), cache), the cache updated in place."""
     x = _embed(params, _tokens(params, token), cfg)
-    x = _run_stack(params, x, cfg, mode="decode", cache=cache,
-                   cache_pos=int(pos))
+    x, _ = _run_stack(params, x, cfg, mode="decode", cache=cache,
+                      cache_pos=int(pos))
     logits = _logits(params, x, cfg)
     return logits[:, 0], cache

@@ -1,0 +1,21 @@
+"""LR schedules (pure functions of the step counter).
+
+Port of ``repro.optim.schedule``, in float32 as there."""
+
+import math
+
+import torch
+
+
+def cosine_schedule(step, *, peak_lr: float, warmup_steps: int,
+                    total_steps: int, min_ratio: float = 0.1):
+    """Linear warm-up to ``peak_lr`` over ``warmup_steps``, then a cosine
+    decay to ``min_ratio · peak_lr`` at ``total_steps``: a float32
+    scalar tensor."""
+    step = torch.as_tensor(step, dtype=torch.float32)
+    warm = peak_lr * step / max(warmup_steps, 1)
+    frac = torch.clamp((step - warmup_steps)
+                       / max(total_steps - warmup_steps, 1), 0.0, 1.0)
+    cos = peak_lr * (min_ratio + (1 - min_ratio)
+                     * 0.5 * (1 + torch.cos(math.pi * frac)))
+    return torch.where(step < warmup_steps, warm, cos)

@@ -11,7 +11,10 @@ smoke size, and Qwen3-MoE at full width cut to 4 layers), the quantized MoE
 workload (no kernel of its own: layer by layer against the golden, the
 bucketed forward against eager, no host sync), and the persistent
 cache's kernel libraries (a corrupt one quarantined and rebuilt; a warm
-start in a fresh process that builds nothing).
+start in a fresh process that builds nothing), and training (the
+gradients through K7's and K8's ``torch.autograd.Function``s against the
+CPU's, ``forward_train``'s loss and gradients against the reference's
+training golden).
 Every test here carries the ``cuda`` marker and skips without a card;
 this file imports no JAX, so it also runs where JAX is not installed:
 
@@ -46,6 +49,7 @@ GOLDEN = SRC / "golden" / "quickstart_reference.npz"
 LM_GOLDEN = SRC / "golden" / "lm_reference.npz"
 MOE_GOLDEN = SRC / "golden" / "moe_reference.npz"
 LM_ZOO_GOLDEN = SRC / "golden" / "lm_zoo_reference.npz"
+TRAIN_GOLDEN = SRC / "golden" / "train_reference.npz"
 
 KERNELS = {"conv1_layer": (conv2d.conv1_layer, conv2d.conv1_layer_plain),
            "fused_dot_layer": (base.fused_dot_layer,
@@ -833,3 +837,104 @@ def test_moe_on_card_matches_golden_and_syncs_nothing(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# training: gradients through K7 and K8
+# ---------------------------------------------------------------------------
+
+def _grads_on(device, fn, arrays, dout):
+    """(output, gradients of ``sum(fn(*inputs) * dout)``) with the
+    numpy ``arrays`` as inputs on ``device``, as float32 CPU tensors."""
+    ins = [torch.from_numpy(a).to(device) for a in arrays]
+    dtype = torch.bfloat16 if dout.dtype == np.float16 else None
+    if dtype is not None:
+        ins = [t.to(dtype) for t in ins]
+    ins = [t.requires_grad_() for t in ins]
+    out = fn(*ins)
+    d = torch.from_numpy(dout.astype(np.float32)).to(device).to(out.dtype)
+    out.backward(d)
+    return out.detach().float().cpu(), [t.grad.float().cpu() for t in ins]
+
+
+@pytest.mark.parametrize("b,s,h,kh,d,dtype", [
+    (2, 16, 4, 2, 16, np.float32), (1, 1100, 8, 2, 64, np.float32),
+    (2, 512, 24, 8, 128, np.float16)])
+def test_flash_backward_on_card_matches_cpu(cuda, b, s, h, kh, d, dtype):
+    """K8's ``Function`` on the card (one kernel launch forward, the
+    chunked recompute backward) against the same on the CPU (the plain
+    forward): float32 output within 2e-5 and gradients within 1e-4;
+    bf16 (``np.float16`` marks it here) output within one bf16 unit and
+    gradients within 2e-2."""
+    rng = np.random.default_rng(s + d)
+    arrays = [rng.standard_normal((b, s, n, d)).astype(np.float32)
+              for n in (h, kh, kh)]
+    dout = rng.standard_normal((b, s, h, d)).astype(dtype)
+    before = fa.flash_attention.launches
+    out, grads = _grads_on(cuda, fa.flash_attention, arrays, dout)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    cpu_out, cpu_grads = _grads_on("cpu", fa.flash_attention, arrays, dout)
+    f32 = dtype == np.float32
+    torch.testing.assert_close(out, cpu_out, **(
+        dict(rtol=2e-5, atol=2e-5) if f32 else dict(rtol=2 ** -7,
+                                                    atol=1e-3)))
+    for got, want in zip(grads, cpu_grads):
+        torch.testing.assert_close(got, want, **(
+            dict(rtol=1e-4, atol=1e-4) if f32 else dict(rtol=2e-2,
+                                                        atol=2e-2)))
+
+
+@pytest.mark.parametrize("b,s,c,k,dtype", [
+    (2, 37, 64, 4, np.float32), (2, 2048, 4096, 4, np.float16),
+    (2, 2048, 128, 4, np.float16)])
+def test_conv1d_backward_on_card_matches_cpu(cuda, b, s, c, k, dtype):
+    """K7's ``Function`` on the card against the CPU: the forward equal
+    (the kernel's float32 order), the gradients of x and w within 1e-5
+    relative (float32 sums in another order); bf16 (``np.float16`` marks
+    it) gradients within one bf16 unit."""
+    rng = np.random.default_rng(s + c)
+    arrays = [rng.standard_normal((b, s, c)).astype(np.float32),
+              rng.standard_normal((k, c)).astype(np.float32)]
+    dout = rng.standard_normal((b, s, c)).astype(dtype)
+    before = conv1d.causal_conv1d.launches
+    out, grads = _grads_on(cuda, conv1d.causal_conv1d, arrays, dout)
+    torch.cuda.synchronize()
+    assert conv1d.causal_conv1d.launches == before + 1
+    cpu_out, cpu_grads = _grads_on("cpu", conv1d.causal_conv1d, arrays,
+                                   dout)
+    assert torch.equal(out, cpu_out)
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == np.float32 \
+        else dict(rtol=2 ** -7, atol=1e-2)
+    for got, want in zip(grads, cpu_grads):
+        torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-1.3b",
+                                  "qwen3-moe-30b-a3b"])
+def test_forward_train_on_card_matches_golden(cuda, arch):
+    """``forward_train`` at smoke size, float32, on the card against the
+    reference's training golden: the loss within 1e-5 relative and every
+    gradient leaf (the attention projections and conv taps, whose
+    gradients run through K8's and K7's backwards, among them) within
+    relative L2 1e-4; K8/K7 launched for each layer's forward and its
+    remat recompute."""
+    from repro_torch import tree
+    from repro_torch.train.step import loss_and_grads
+    with np.load(TRAIN_GOLDEN) as z:
+        g = {k: z[k] for k in z.files if k.startswith(arch + "/")}
+    cfg = smoke_config(arch).with_overrides(dtype="float32")
+    params = convert.lm_params_from_numpy(
+        convert.nested_from_flat(g, f"{arch}/params"), cfg, cuda)
+    before = fa.flash_attention.launches + conv1d.causal_conv1d.launches
+    loss, _, grads = loss_and_grads(
+        build_model(cfg, cuda), params,
+        {"tokens": g[f"{arch}/tokens"], "labels": g[f"{arch}/labels"]})
+    layers = cfg.n_layers * (3 if arch.startswith("mamba") else 1)
+    assert fa.flash_attention.launches + conv1d.causal_conv1d.launches \
+        == before + 2 * layers
+    np.testing.assert_allclose(float(loss), g[f"{arch}/loss"], rtol=1e-5)
+    for k, v in tree.flatten(grads).items():
+        want = g[f"{arch}/grads/{k}"]
+        err = np.linalg.norm(v.cpu().numpy() - want) / np.linalg.norm(want)
+        assert err < 1e-4, (k, err)

@@ -52,10 +52,22 @@ only (the reference's ``Engine`` cannot prefill ``frames`` or
 both decode in one wave and take MoE capacity from each other (in
 Llama-4's top-1, capacity-1 decode the second is dropped).
 
+``src/repro_torch/golden/train_reference.npz`` holds, for each arch of
+``TRAIN_ARCHS`` (Llama-3.2-3B, Mamba-2-1.3B, Qwen3-MoE) at
+``smoke_config`` in float32: the reference's parameters
+(``model.init(PRNGKey(1))``, under ``<arch>/params/<path>``), the batch
+``batch_at(DataConfig(vocab, 16, 2), 0)`` (``tokens``, ``labels``),
+``forward_train``'s ``loss``, ``nll`` and ``aux``, every gradient leaf
+of the loss (``<arch>/grads/<path>``) and their ``grad_norm``, and the
+parameters after one ``make_train_step`` step (default lr) with float32
+and with int8 AdamW states (``<arch>/step_float32/<path>``,
+``<arch>/step_int8/<path>``).
+
 The card is held against the JAX package through these files, without
 importing it.  Regenerate all of them (the reference's planner and this
 file run the reference's resource sweep, about a minute without its
-cache), or only those named (``plans golden synth lm lm_zoo moe``):
+cache), or only those named (``plans golden synth lm lm_zoo moe
+train``):
 
     PYTHONPATH=src python tests/test_torch_golden.py [lm_zoo ...]
 """
@@ -73,10 +85,14 @@ from repro.blocks import get_block
 from repro.configs import smoke_config
 from repro.core import allocate, deploy, synth
 from repro.core.cnn import fitted_block_models, quickstart_cnn_config
+from repro.data.pipeline import DataConfig, batch_at
 from repro.models import build_model
+from repro.optim import AdamWConfig, adamw_init
+from repro.optim.adamw import global_norm
 from repro.runtime import (CompiledCNN, CompiledMoE, moe_workload_from_config,
                            plan_moe_deployment)
 from repro.serve import Engine, Request, ServeConfig
+from repro.train.step import make_train_step
 from torch_parity import dispatch_trace
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -98,6 +114,10 @@ LM_ZOO_MOE_ARCHS = ("qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b",
                     "jamba-1.5-large-398b")
 LM_ZOO_ARCHS = LM_ZOO_MOE_ARCHS + ("whisper-medium", "pixtral-12b")
 LM_BATCH, LM_SEQ, LM_DECODE_STEPS = 2, 16, 3
+TRAIN_GOLDEN = ROOT / "src" / "repro_torch" / "golden" \
+    / "train_reference.npz"
+TRAIN_ARCHS = ("llama3.2-3b", "mamba2-1.3b", "qwen3-moe-30b-a3b")
+TRAIN_STATES = ("float32", "int8")
 # the reference Engine's requests: prompts of 8 tokens, 5 new tokens each,
 # two slots (the tests/test_serve.py shape)
 LM_ENGINE = dict(requests=4, prompt_len=8, max_batch=2, max_len=32,
@@ -261,6 +281,40 @@ def lm_zoo_reference_golden():
     return arrays
 
 
+def _flat_tree(prefix, tree):
+    return {f"{prefix}/" + "/".join(p.key for p in path): np.asarray(leaf)
+            for path, leaf in jax.tree_util.tree_leaves_with_path(tree)}
+
+
+def train_reference_golden():
+    """Arrays of the training golden npz, computed by the reference's
+    ``forward_train``, ``jax.value_and_grad`` and ``make_train_step`` at
+    ``smoke_config`` in float32."""
+    arrays = {}
+    for arch in TRAIN_ARCHS:
+        cfg = smoke_config(arch).with_overrides(dtype="float32")
+        model = build_model(cfg)
+        params = model.init(jax.random.PRNGKey(1))
+        batch = batch_at(DataConfig(cfg.vocab_size, LM_SEQ, LM_BATCH), 0)
+        jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+        (loss, metrics), grads = jax.jit(jax.value_and_grad(
+            model.forward_train, has_aux=True))(params, jbatch)
+        arrays.update(_flat_tree(f"{arch}/params", params))
+        arrays[f"{arch}/tokens"] = batch["tokens"]
+        arrays[f"{arch}/labels"] = batch["labels"]
+        arrays[f"{arch}/loss"] = np.asarray(loss)
+        for k in ("nll", "aux"):
+            arrays[f"{arch}/{k}"] = np.asarray(metrics[k])
+        arrays[f"{arch}/grad_norm"] = np.asarray(global_norm(grads))
+        arrays.update(_flat_tree(f"{arch}/grads", grads))
+        for state in TRAIN_STATES:
+            opt = AdamWConfig(state_dtype=state)
+            step = jax.jit(make_train_step(model, opt))
+            new_params, _, _ = step(params, adamw_init(params, opt), jbatch)
+            arrays.update(_flat_tree(f"{arch}/step_{state}", new_params))
+    return arrays
+
+
 def moe_reference_plan():
     """The reference planner's plan of the smoke Qwen3-MoE experts."""
     return plan_moe_deployment(
@@ -340,6 +394,23 @@ def test_lm_zoo_golden_rebuilds_from_reference():
                 assert np.array_equal(got[k], v), k
 
 
+def test_train_golden_rebuilds_from_reference():
+    """The committed training golden file is the reference's: parameters
+    and the batch exactly, the losses, gradients and stepped parameters
+    within 1e-5 relative and 1e-6 absolute (float32 on the CPU; another
+    compilation of the step moves a parameter by up to 1.3e-6)."""
+    want = train_reference_golden()
+    with np.load(TRAIN_GOLDEN) as got:
+        assert sorted(got.files) == sorted(want)
+        for k, v in want.items():
+            assert got[k].dtype == v.dtype and got[k].shape == v.shape, k
+            if k.split("/")[1] in ("params", "tokens", "labels"):
+                assert np.array_equal(got[k], v), k
+            else:
+                np.testing.assert_allclose(got[k], v, rtol=1e-5, atol=1e-6,
+                                           err_msg=k)
+
+
 def committed_plans():
     return {stem: deploy.DeploymentPlan.load(PLANS / f"{stem}.json")
             for stem in PINS}
@@ -401,9 +472,10 @@ def write_synth_reference(rows):
 def main(argv=None):
     """Regenerate every committed file, or only those named in
     ``argv`` (``plans``, ``golden``, ``synth``, ``lm``, ``lm_zoo``,
-    ``moe``): a file not named is left byte for byte as it is."""
+    ``moe``, ``train``): a file not named is left byte for byte as it
+    is."""
     names = set(argv or ()) or {"plans", "golden", "synth", "lm", "lm_zoo",
-                                "moe"}
+                                "moe", "train"}
     wrote = []
     if names & {"plans", "golden"}:
         plans = {stem: reference_plan(stem) for stem in PINS}
@@ -422,7 +494,9 @@ def main(argv=None):
     for name, path, make in (("lm", LM_GOLDEN, lm_reference_golden),
                              ("lm_zoo", LM_ZOO_GOLDEN,
                               lm_zoo_reference_golden),
-                             ("moe", MOE_GOLDEN, moe_reference_golden)):
+                             ("moe", MOE_GOLDEN, moe_reference_golden),
+                             ("train", TRAIN_GOLDEN,
+                              train_reference_golden)):
         if name in names:
             np.savez_compressed(path, **make())
             wrote.append(path)

@@ -91,6 +91,12 @@ SLICE_MODULES = (
     "repro_torch.configs.llama4_maverick_400b_a17b",
     "repro_torch.configs.jamba_1_5_large_398b",
     "repro_torch.configs.whisper_medium", "repro_torch.configs.pixtral_12b",
+    # slice 12: training
+    "repro_torch.tree", "repro_torch.data.pipeline",
+    "repro_torch.optim.adamw", "repro_torch.optim.schedule",
+    "repro_torch.parallel.compress", "repro_torch.train.step",
+    "repro_torch.train.checkpoint", "repro_torch.train.loop",
+    "repro_torch.launch.train",
 )
 
 

@@ -8,8 +8,15 @@ on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 Tolerances are the reference's own: 1e-5 for the conv (float32
 products and sums, the same K terms in the same order; XLA may fuse a
 multiply-add), 2e-4 for float32 attention and 2e-2 for bfloat16
-attention (``tests/test_flash_attention.py``)."""
+attention (``tests/test_flash_attention.py``).
 
+The gradients of both wrappers (their ``torch.autograd.Function``s,
+the same on the CPU and on the card) are held against ``jax.grad`` of
+the reference's model paths, which ``jax.grad`` differentiates in
+training: the chunked einsum attention and the jnp conv, within the same
+tolerances."""
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +25,7 @@ import torch
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_oracle
 from repro.kernels.flash_attention import flash_attention as ref_flash
+from repro.models import attention as ref_attn
 from repro.models import ssm as ref_ssm
 from repro_torch.kernels import conv1d, flash_attention as fa, ops
 from repro_torch.models import ssm
@@ -131,6 +139,61 @@ def test_model_conv_bf16_gap_to_reference():
     assert np.mean(a != b) > 0.05     # the gap is real, not a no-op
 
 
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("s,k", [(1, 4), (2, 4), (37, 4), (16, 2)])
+def test_conv1d_backward_matches_reference_grad(s, k, with_state):
+    """``models.ssm.causal_conv1d`` (K7's ``Function``, the cast, the
+    SiLU) differentiated by torch against ``jax.grad`` of the reference's
+    model conv: the gradients of x, w and the state within 1e-5, and
+    the output of a plain call has no autograd graph."""
+    rng = np.random.default_rng(100 * s + k)
+    x = rng.normal(size=(2, s, 24)).astype(np.float32)
+    w = rng.normal(size=(k, 24)).astype(np.float32)
+    st = rng.normal(size=(2, k - 1, 24)).astype(np.float32)
+    dy = rng.normal(size=(2, s, 24)).astype(np.float32)
+
+    def ref_loss(x_, w_, st_):
+        y, _ = ref_ssm.causal_conv1d(x_, w_, st_ if with_state else None)
+        return jnp.sum(y * dy)
+    want = jax.grad(ref_loss, argnums=(0, 1, 2))(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(st))
+    tx, tw, tst = (_t(a).requires_grad_() for a in (x, w, st))
+    y, _ = ssm.causal_conv1d(tx, tw, tst if with_state else None)
+    assert y.grad_fn is not None
+    y.backward(_t(dy))
+    for got, ref, name in ((tx, want[0], "x"), (tw, want[1], "w"),
+                           (tst, want[2], "state")):
+        if name == "state" and not with_state:
+            assert got.grad is None
+            continue
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(ref),
+                                   rtol=CONV_TOL, atol=CONV_TOL,
+                                   err_msg=name)
+    with torch.no_grad():
+        assert conv1d.causal_conv1d(tx, tw).grad_fn is None
+    assert conv1d.causal_conv1d(_t(x), _t(w)).grad_fn is None
+
+
+def test_conv1d_backward_bf16_accumulates_in_f32():
+    """bf16 inputs: the gradients come back in bf16, computed in float32
+    (against float32 torch autograd of the plain version on the same
+    bf16 values, within one bf16 unit)."""
+    rng = np.random.default_rng(3)
+    x = _t(rng.normal(size=(1, 40, 32)).astype(np.float32)) \
+        .to(torch.bfloat16).requires_grad_()
+    w = _t(rng.normal(size=(4, 32)).astype(np.float32)) \
+        .to(torch.bfloat16).requires_grad_()
+    dy = _t(rng.normal(size=(1, 40, 32)).astype(np.float32))
+    conv1d.causal_conv1d(x, w).backward(dy)
+    assert x.grad.dtype == w.grad.dtype == torch.bfloat16
+    xf = x.detach().float().requires_grad_()
+    wf = w.detach().float().requires_grad_()
+    conv1d.causal_conv1d_plain(xf, wf).backward(dy)
+    for got, want in ((x.grad, xf.grad), (w.grad, wf.grad)):
+        torch.testing.assert_close(got.float(), want.to(torch.bfloat16)
+                                   .float(), rtol=2 ** -7, atol=1e-5)
+
+
 def test_conv1d_refuses_what_it_does_not_take():
     x, w = torch.zeros(2, 5, 8), torch.zeros(4, 8)
     with pytest.raises(ValueError, match="expected x"):
@@ -204,3 +267,71 @@ def test_flash_refuses_what_it_does_not_take():
         fa.flash_attention(q, k, k)
     with pytest.raises(ValueError, match="must share"):
         fa.flash_attention(q, q.to(torch.bfloat16), q)
+
+
+@pytest.mark.parametrize("h,kh", [(4, 2), (8, 1)])
+@pytest.mark.parametrize("s,causal,grad_chunk", [
+    (16, True, 1024), (300, True, 1024), (77, False, 1024),
+    (300, True, 128), (77, False, 32)])
+def test_flash_backward_matches_reference_grad(h, kh, s, causal,
+                                               grad_chunk, monkeypatch):
+    """K8 differentiated by torch (its ``Function``: the plain forward on
+    the CPU, the backward recomputing the model's chunked attention one
+    ``GRAD_CHUNK`` rows at a time, here also in several chunks, the last
+    ragged) against ``jax.grad`` of the reference's chunked einsum
+    attention (``models.attention.multi_head_attention``, the path
+    ``jax.grad`` takes in training): the output and the gradients of q,
+    k and v within 2e-4."""
+    monkeypatch.setattr(fa, "GRAD_CHUNK", grad_chunk)
+    rng = np.random.default_rng(h * 1000 + s)
+    d = 16
+    q = rng.normal(size=(1, s, h, d)).astype(np.float32)
+    k = rng.normal(size=(1, s, kh, d)).astype(np.float32)
+    v = rng.normal(size=(1, s, kh, d)).astype(np.float32)
+    dout = rng.normal(size=(1, s, h, d)).astype(np.float32)
+
+    def ref_loss(q_, k_, v_):
+        out = ref_attn.multi_head_attention(q_, k_, v_, causal=causal)
+        return jnp.sum(out * dout), out
+    (_, ref_out), want = jax.value_and_grad(
+        ref_loss, argnums=(0, 1, 2), has_aux=True)(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (_t(a).requires_grad_() for a in (q, k, v))
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(tq, tk, tv, causal=causal)
+    assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
+    out.backward(_t(dout))
+    assert fa.flash_attention.launches == before         # plain on the CPU
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref_out),
+                               rtol=F32_TOL, atol=F32_TOL)
+    for got, ref, name in ((tq, want[0], "q"), (tk, want[1], "k"),
+                           (tv, want[2], "v")):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(ref),
+                                   rtol=F32_TOL, atol=F32_TOL, err_msg=name)
+
+
+def test_flash_backward_bf16_and_routing():
+    """bf16: the gradients come back in bf16 within 2e-2 of the
+    reference's; without grad (no input requires it, or under
+    ``no_grad``) the call is the plain forward with no graph, as
+    prefill and decode run it."""
+    rng = np.random.default_rng(2)
+    q, k, v = (jnp.asarray(rng.normal(size=(1, 64, 2, 16)), jnp.bfloat16)
+               for _ in range(3))
+    dout = rng.normal(size=(1, 64, 2, 16)).astype(np.float32)
+    want = jax.grad(lambda q_, k_, v_: jnp.sum(
+        ref_attn.multi_head_attention(q_, k_, v_, causal=True)
+        .astype(jnp.float32) * dout), argnums=(0, 1, 2))(q, k, v)
+    to_t = lambda a: _t(np.asarray(a, np.float32)).to(torch.bfloat16)
+    tq, tk, tv = (to_t(a).requires_grad_() for a in (q, k, v))
+    out = fa.flash_attention(tq, tk, tv)
+    out.backward(_t(dout).to(torch.bfloat16))
+    for got, ref in ((tq, want[0]), (tk, want[1]), (tv, want[2])):
+        assert got.grad.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.grad.float().numpy(),
+                                   np.asarray(ref, np.float32),
+                                   rtol=BF16_TOL, atol=BF16_TOL)
+    with torch.no_grad():
+        assert fa.flash_attention(tq, tk, tv).grad_fn is None
+    assert fa.flash_attention(tq.detach(), tk.detach(),
+                              tv.detach()).grad_fn is None

@@ -174,8 +174,9 @@ def test_moe_sublayer_aux_matches_reference(arch):
     """Each sublayer's ``_run_sublayer`` returns its MoE MLP's aux loss,
     a float32 scalar, equal to the reference's for the same sublayer on
     the same input (None for a dense or no MLP, where the reference's is
-    0).  ``_run_stack`` drops them, as prefill and decode drop the
-    reference's; summing them waits for the training path."""
+    0).  Prefill and decode drop them, as the reference's do;
+    ``forward_train`` adds every one of them, where the reference's scan
+    keeps each cycle's last (``tests/test_torch_train.py``)."""
     cfg, _, params, tmodel, tparams = _models(arch)
     tcfg = tmodel.cfg
     toks = _batch(cfg, 5)["tokens"]
