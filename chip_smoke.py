@@ -217,11 +217,38 @@ order (any mismatch or error raises and the exit code is non-zero):
    their plain versions, timed as in phase 10, with each one's forward
    and backward beside the library call's; each part's seconds
    printed;
-14. one JSON line ``{"kernels": [...]}`` (with the fleet and recovery
+14. the multi-device layer: two dry-run cells of ``repro_torch.launch.
+   dryrun`` started first, each in its own process on the host's CPU
+   (Qwen3-MoE-30B-A3B x train_4k and, ``--mode fsdp``, Jamba-1.5-Large x
+   prefill_32k, both over a ``fake`` group of 256 ranks); then (a) the
+   launcher's ``--shard`` path on both committed plans with the golden
+   weights over ``cnn_data_mesh()`` (outputs equal to the JAX golden and
+   to the unsharded engine, launches as in phase 5, the mesh size
+   printed); (b) on a one-device NCCL (data, model) mesh, Llama-3.2-3B at
+   full width and depth, bf16, seeded: one ``make_train_step`` step on
+   DTensor trees placed by ``ShardingRules`` (the weights wrapped, not
+   copied) against one unsharded step from the same state (loss within
+   1e-3 relative, every parameter leaf within relative L2 1e-3, K8
+   launched 56 times through ``local_map``, the counters set to 0 just
+   before and read just after), peak memory, then a prefill of 2 x 512
+   tokens and 8 greedy decode steps with the cache placed by
+   ``cache_spec`` against the unsharded path (logits within 5e-2
+   relative L2, tokens equal); (c) ``core.hloscan.analyze_step`` of the
+   sharded step (FLOPs, bytes, the peak it counts beside
+   ``torch.cuda.max_memory_allocated``), ``roofline_terms`` with
+   ``H100_SXM`` beside the measured ms per step (CUDA events, steps 2-4)
+   and their fraction; (d) the dry-run cells read back: status ``ok``,
+   seconds, per-device argument and temporary bytes beside the card's
+   memory; each part's seconds printed;
+15. one JSON line ``{"kernels": [...]}`` (with the fleet and recovery
    results under ``"fleet"`` and ``"recovery"``, the MoE workload's
    under ``"moe"``, the LM zoo's under ``"lm_zoo"``, training's under
-   ``"train"``), the nvidia-smi line, and last ``{"ok": true,
-   "device": {...}}``.
+   ``"train"``, the multi-device layer's under ``"parallel"``), the
+   nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --only-parallel`` builds the kernels and runs
+phase 14 alone (no result line), for work on that phase;
+``--json-out PATH`` also writes the ``{"kernels": ...}`` line to PATH.
 
 It exits non-zero without a result where ``torch.cuda.is_available()``
 is false, or where the port's sources are not beside it.
@@ -3449,6 +3476,346 @@ def train_phase(entries, smi):
     return out
 
 
+# the multi-device phase: --shard on both committed plans; Llama-3.2-3B
+# at full width and depth on a one-device NCCL (data, model) mesh — one
+# train step (2 x 2048 tokens, as phase 13) against one unsharded step
+# from the same state, a prefill of PAR_PROMPT tokens for PAR_BATCH
+# sequences and PAR_DECODE greedy decode steps against the unsharded
+# path; the analysis of the sharded step; two dry-run cells
+PAR_ARCH = "llama3.2-3b"
+PAR_LOSS_RTOL, PAR_LEAF_REL_L2 = 1e-3, 1e-3
+PAR_BATCH, PAR_PROMPT, PAR_DECODE = 2, 512, 8
+PAR_TIMED_STEPS = 3
+DRYRUN_CELLS = (("qwen3-moe-30b-a3b", "train_4k", "auto"),
+                ("jamba-1.5-large-398b", "prefill_32k", "fsdp"))
+
+
+def start_dryruns(out_dir):
+    """Phase 14 (d), started first: each dry-run cell in its own process
+    (``python -m repro_torch.launch.dryrun``, so its ``fake`` group never
+    meets the NCCL one), on the host's CPU, the card hidden.  Returns
+    the processes with their start times."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for arch, shape, mode in DRYRUN_CELLS:
+        log = open(Path(out_dir) / f"{arch}__{shape}.log", "w")
+        procs.append((arch, shape, mode, time.perf_counter(), log,
+                      subprocess.Popen(
+                          [sys.executable, "-m", "repro_torch.launch.dryrun",
+                           "--arch", arch, "--shape", shape, "--mesh",
+                           "single", "--mode", mode, "--out", str(out_dir)],
+                          env=env, stdout=log, stderr=subprocess.STDOUT)))
+    return procs
+
+
+def finish_dryruns(procs, out_dir):
+    """Phase 14 (d): wait for each cell (600 s at most), read its record:
+    status ``ok``, seconds, and the per-device argument and temporary
+    bytes beside the card's own memory."""
+    import torch
+    card = torch.cuda.get_device_properties(0).total_memory
+    out = {}
+    for arch, shape, mode, t0, log, proc in procs:
+        try:
+            rc = proc.wait(timeout=max(1.0, 600 - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise
+        finally:
+            log.close()
+        seconds = time.perf_counter() - t0
+        rec_path = Path(out_dir) / f"baseline__{arch}__{shape}__single.json"
+        rec = json.loads(rec_path.read_text()) if rec_path.exists() else {}
+        if rc or not rec:
+            log_text = (Path(out_dir) / f"{arch}__{shape}.log").read_text()
+            raise AssertionError(
+                f"dry run {arch} x {shape} failed (rc {rc}):\n"
+                f"{log_text[-3000:]}\n{rec.get('traceback', '')}")
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry run {arch} x {shape}: {rec}")
+        mem = rec["memory"]
+        res = {"arch": arch, "shape": shape, "mode": rec["mode"],
+               "n_chips": rec["n_chips"], "status": rec["status"],
+               "seconds": seconds, "trace_s": rec["trace_s"],
+               "argument_bytes_per_device": mem["argument_size_in_bytes"],
+               "temp_bytes_per_device": mem["temp_size_in_bytes"],
+               "card_bytes": card,
+               "flops_per_device": rec["hlo"]["flops"],
+               "hbm_bytes_per_device": rec["hlo"]["hbm_bytes"],
+               "collective_bytes_per_device":
+                   rec["hlo"]["collective_total"]}
+        print(f"[parallel dryrun] {arch} x {shape} x single "
+              f"({rec['mode']}, {rec['n_chips']} devices): status ok in "
+              f"{seconds:.1f} s; per device "
+              f"{res['argument_bytes_per_device'] / 1e9:.3f} GB of arguments "
+              f"and "
+              f"{res['temp_bytes_per_device'] / 1e9:.3f} GB of temporaries "
+              f"against this card's {card / 1e9:.3f} GB")
+        out[f"{arch}__{shape}"] = res
+    return out
+
+
+def shard_cnn(entries):
+    """Phase 14 (a): the launcher's ``--shard`` path on both committed
+    plans with the golden weights over ``cnn_data_mesh()``: outputs equal
+    to the JAX golden and to the unsharded engine, each layer's entry
+    launched once per forward per device, the counters set to 0 just
+    before each plan and read just after."""
+    import numpy as np
+    from repro_torch.launch import serve
+    from repro_torch.parallel.sharding import cnn_data_mesh
+    golden = np.load(GOLDEN)
+    out = {"mesh_devices": cnn_data_mesh().size}
+    for stem in (UNPINNED, PINNED):
+        args = serve_args(stem, REQUESTS)
+        args.shard = True
+        engine, reqs, dt = drive(entries, f"parallel shard {stem}",
+                                 set(SERVE_LAUNCHES[stem]),
+                                 lambda: serve.run_cnn(args))
+        forwards = sum(engine.stats()["bucket_hits"].values())
+        _check_serve_launches(f"parallel shard {stem}",
+                              {stem: forwards * engine.mesh.size})
+        ys = np.stack([r.output for r in reqs])
+        if not np.array_equal(ys[:8], golden[f"{stem}.y"]):
+            raise AssertionError(f"--shard {stem}: outputs differ from the "
+                                 f"JAX golden")
+        _, plain, _ = serve.run_cnn(serve_args(stem, REQUESTS))
+        if not np.array_equal(ys, np.stack([r.output for r in plain])):
+            raise AssertionError(f"--shard {stem}: outputs differ from the "
+                                 f"unsharded engine")
+        out[stem] = {"forwards": forwards, "requests": len(reqs),
+                     "seconds": dt}
+        print(f"[parallel shard] {stem}: {len(reqs)} requests over a mesh "
+              f"of {engine.mesh.size} device(s), {forwards} forwards, "
+              f"outputs equal the JAX golden and the unsharded engine")
+    return out
+
+
+def _rel_l2_t(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def _cuda_ms(fn):
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop), out
+
+
+def sharded_llama(entries, smi, tmp):
+    """Phase 14 (b) and (c) on a one-device NCCL (data, model) mesh."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import hloscan
+    from repro_torch.core.roofline import H100_SXM, roofline_terms
+    from repro_torch.data import DataConfig, batch_at
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.parallel.sharding import ShardingRules, place_tree
+    from repro_torch.train.step import make_serve_steps, make_train_step
+
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(Path(tmp) / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        cfg = get_config(PAR_ARCH)
+        model = build_model(cfg, "cuda")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = model.init(torch.Generator(device="cuda")
+                            .manual_seed(TRAIN_SEED))
+        rules = ShardingRules(cfg, mesh, mode="tp")
+        opt = AdamWConfig()
+        data = DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+        batch = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in batch_at(data, 0).items()}
+        step = make_train_step(model, opt, lr=TRAIN_LR)
+        want_k8 = _per_step_launches(cfg)["flash_attention"]
+
+        # (b) one unsharded step on a copy, its result kept on the host
+        ref = tree.tree_map(lambda t: t.clone(), params)
+        ref, ref_state, ref_m = step(ref, adamw_init(ref, opt), batch)
+        ref_loss = float(ref_m["loss"])
+        ref_host = {k: v.cpu() for k, v in tree.flatten(ref).items()}
+        del ref, ref_state
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # the same state as DTensors: wrapped, not copied
+        p_spec = rules.params_spec(params)
+        dparams = place_tree(params, p_spec, mesh)
+        dstate = adamw_init(dparams, opt)
+        dbatch = place_tree(batch, rules.batch_spec(batch), mesh)
+        dparams, dstate, m = drive(entries, "parallel sharded train",
+                                   {"flash_attention"},
+                                   lambda: step(dparams, dstate, dbatch))
+        k8 = LAUNCHES["parallel sharded train"]["flash_attention"]
+        loss = float(m["loss"].full_tensor())
+        got = tree.flatten(dparams)
+        worst = max((_rel_l2_t(got[k].to_local().cpu(), v), k)
+                    for k, v in ref_host.items())
+        peak_train = torch.cuda.max_memory_allocated()
+        train = {"loss": loss, "loss_unsharded": ref_loss,
+                 "loss_rel_err": abs(loss - ref_loss) / abs(ref_loss),
+                 "worst_leaf_rel_l2": worst[0], "worst_leaf": worst[1],
+                 "k8_launches": k8, "k8_launches_want": want_k8,
+                 "peak_memory_gb": peak_train / 1e9}
+        print(f"[parallel train] {json.dumps(train)}")
+        if train["loss_rel_err"] > PAR_LOSS_RTOL or worst[0] > \
+                PAR_LEAF_REL_L2 or k8 != want_k8:
+            raise AssertionError(f"sharded train step: {train}")
+        del ref_host
+
+        # (c) the analysis of the sharded step, then steps 2-4 timed
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        batch1 = place_tree({k: torch.as_tensor(v, device="cuda")
+                             for k, v in batch_at(data, 1).items()},
+                            rules.batch_spec(batch), mesh)
+        res = hloscan.analyze_step(step, dparams, dstate, batch1)
+        measured_peak = torch.cuda.max_memory_allocated()
+        mem = hloscan.memory_summary(res)
+        times = []
+        for k in range(PAR_TIMED_STEPS):
+            bk = place_tree({kk: torch.as_tensor(v, device="cuda")
+                             for kk, v in batch_at(data, 2 + k).items()},
+                            rules.batch_spec(batch), mesh)
+            ms, (dparams, dstate, _) = _cuda_ms(
+                lambda: step(dparams, dstate, bk))
+            times.append(ms)
+        ms = sum(times) / len(times)
+        record = {"arch": PAR_ARCH, "shape": "train", "kind": "train",
+                  "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
+                  "n_chips": 1, "params": cfg.param_count(),
+                  "active_params": cfg.active_param_count(),
+                  "hlo": {k: res[k] for k in ("flops", "hbm_bytes",
+                                              "collective_total")}}
+        terms = roofline_terms(record, H100_SXM)
+        bound_s = max(terms["compute_s"], terms["memory_s"],
+                      terms["collective_s"])
+        analysis = {
+            "flops": res["flops"], "hbm_bytes": res["hbm_bytes"],
+            "collective_total": res["collective_total"], "ops": res["ops"],
+            "kernels": res["kernels"], "memory": mem,
+            "counted_peak_gb": (base + mem["temp_size_in_bytes"]) / 1e9,
+            "measured_peak_gb": measured_peak / 1e9,
+            "steps_ms": times, "ms_per_step": ms, "roofline": terms,
+            "bound_ms": bound_s * 1e3,
+            "bound_over_measured": bound_s * 1e3 / ms,
+            "ideal_over_measured": terms["ideal_s"] * 1e3 / ms,
+            "card": smi}
+        print(f"[parallel analysis] {json.dumps(analysis)}")
+
+        # (b) serving: prefill + greedy decode, sharded against unsharded
+        prefill, decode = make_serve_steps(model)
+        rng = torch.Generator(device="cuda").manual_seed(TRAIN_SEED + 1)
+        prompts = torch.randint(0, cfg.vocab_size, (PAR_BATCH, PAR_PROMPT),
+                                generator=rng, device="cuda")
+
+        def serve(p, place_batch, place_cache):
+            """Prefill, the cache padded for PAR_DECODE more positions
+            (on a one-device mesh a DTensor's local tensor is the whole
+            tensor), then greedy decode.  Returns (logits per call,
+            tokens)."""
+            logits, cache = prefill(p, {"tokens": place_batch(prompts)})
+            big = place_cache(model.init_cache(PAR_BATCH,
+                                               PAR_PROMPT + PAR_DECODE))
+            for key, entry in cache.items():
+                for name, t in entry.items():
+                    src = _local(t)
+                    _local(big[key][name])[:, :, :src.shape[2]].copy_(src)
+            outs, toks = [_local(logits)], []
+            for i in range(PAR_DECODE):
+                toks.append(outs[-1].argmax(-1, keepdim=True))
+                logits, big = decode(p, big, place_batch(toks[-1]),
+                                     PAR_PROMPT + i)
+                outs.append(_local(logits))
+            return outs, torch.cat(toks, 1)
+
+        def place_batch(t):
+            return place_tree({"t": t}, rules.batch_spec({"t": t}),
+                              mesh)["t"]
+
+        def place_cache(c):
+            return place_tree(c, rules.cache_spec(c), mesh)
+
+        plain_outs, plain_toks = serve(params_plain(dparams), _same, _same)
+        sh_outs, sh_toks = drive(entries, "parallel sharded serve",
+                                 {"flash_attention"},
+                                 lambda: serve(dparams, place_batch,
+                                               place_cache))
+        errs = [_rel_l2_t(a, b) for a, b in zip(sh_outs, plain_outs)]
+        serve_res = {"batch": PAR_BATCH, "prompt": PAR_PROMPT,
+                     "decode_steps": PAR_DECODE, "logits_rel_l2": errs,
+                     "tokens_equal": bool(torch.equal(sh_toks, plain_toks)),
+                     "k8_launches": LAUNCHES["parallel sharded serve"]
+                     ["flash_attention"]}
+        print(f"[parallel serve] {json.dumps(serve_res)}")
+        if max(errs) > LM_CUT_REL_L2 or not serve_res["tokens_equal"]:
+            raise AssertionError(f"sharded serve: {serve_res}")
+        return {"train": train, "analysis": analysis, "serve": serve_res}
+    finally:
+        dist.destroy_process_group()
+
+
+def _same(t):
+    return t
+
+
+def _local(t):
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def params_plain(dparams):
+    """The local tensors of a one-device mesh's DTensor tree (the same
+    storage: the unsharded path runs on the very weights)."""
+    if isinstance(dparams, dict):
+        return {k: params_plain(v) for k, v in dparams.items()}
+    return dparams.to_local()
+
+
+def parallel_phase(entries, smi):
+    """Phase 14, the multi-device layer: (d) started first in its own
+    processes, then (a), (b) and (c), then (d) read; each part's seconds
+    printed."""
+    out, seconds = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-par-") as tmp:
+        t_all = time.perf_counter()
+        procs = start_dryruns(tmp)
+        try:
+            for part, fn in (("shard", lambda: shard_cnn(entries)),
+                             ("llama", lambda: sharded_llama(entries, smi,
+                                                             tmp))):
+                t0 = time.perf_counter()
+                out[part] = fn()
+                seconds[part] = time.perf_counter() - t0
+                print(f"[parallel] {part}: {seconds[part]:.1f} s")
+            t0 = time.perf_counter()
+            out["dryrun"] = finish_dryruns(procs, tmp)
+            seconds["dryrun_wait"] = time.perf_counter() - t0
+        finally:
+            for *_, log, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        seconds["phase"] = time.perf_counter() - t_all
+        print(f"[parallel] phase: {seconds['phase']:.1f} s")
+    out["seconds"] = seconds
+    return out
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--warm-start":
         # the recovery phase's fresh process (``_warm_start_process``)
@@ -3502,6 +3869,10 @@ def main() -> int:
         print(f"[build] flash_attention: {tensor_ops} tensor-core "
               f"instructions (HMMA/HGMMA) in its SASS (cuobjdump -sass)")
 
+        if "--only-parallel" in sys.argv[1:]:
+            # phase 14 alone, for working on it (no result line)
+            print(json.dumps({"parallel": parallel_phase({}, smi)}))
+            return 0
         entries = check_kernels()
         entries.update(check_plane_kernels())
         rates, step_ms = serve_plans(entries)
@@ -3521,6 +3892,7 @@ def main() -> int:
                "full_width": moe_full_width(entries, smi)}
         zoo = lm_zoo(entries, smi)
         trained = train_phase(entries, smi)
+        parallel = parallel_phase(entries, smi)
         keys = ("name", "route", "source", "replaces", "launches",
                 "max_abs_err", "equal") + TIMES + (
                 "shape", "launches_by_path", "cases")
@@ -3535,8 +3907,15 @@ def main() -> int:
                 "lm_k7_per_mamba_layer": entries["causal_conv1d"]["per_layer"],
                 "lm_full_width": lm, "lm_cut_plain_vs_kernel": lm_cut,
                 "moe": moe, "lm_zoo": zoo, "train": trained,
+                "parallel": parallel,
                 "int32_ops_per_s": int32_rate(), "card": smi}
         print(json.dumps(line))
+        if "--json-out" in sys.argv[1:]:
+            # the whole line, for a caller whose captured output keeps
+            # only its end
+            out = Path(sys.argv[sys.argv.index("--json-out") + 1])
+            out.parent.mkdir(parents=True, exist_ok=True)
+            out.write_text(json.dumps(line))
         print(smi)
     except Exception:                  # noqa: BLE001 — report and fail
         traceback.print_exc()

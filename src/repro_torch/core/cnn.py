@@ -142,17 +142,40 @@ def _requantize(acc: torch.Tensor, spec: ConvLayerSpec) -> torch.Tensor:
     return conv2d.requantize(acc, spec.shift, spec.data_bits)
 
 
-def cnn_forward(params, x, cfg: CNNConfig, blocks: Sequence[BlockLike]):
+def cnn_forward(params, x, cfg: CNNConfig, blocks: Sequence[BlockLike],
+                *, mesh=None):
     """x: (H, W, C_in) quantized ints, or an (N, H, W, C_in) image batch,
     on the device of ``params``.  Returns the last layer's (H, W, C_out)
     — or (N, H, W, C_out).  Each layer is one ``apply_batched`` call
-    through the assigned block, then ``_requantize``."""
+    through the assigned block, then ``_requantize``.
+
+    ``mesh``: a ``parallel.sharding.CNNDataMesh`` for data-parallel
+    serving — a batch splits over its devices by
+    ``cnn_batch_sharding`` (whole on each where N does not divide
+    them), each device runs every layer on its slice with its own copy
+    of the weights, and the slices are joined on the first device."""
+    if mesh is not None and x.ndim == 4:
+        from repro_torch.parallel.sharding import cnn_batch_sharding
+        sharding = cnn_batch_sharding(mesh, x.shape[0])
+        parts = [on_device(dev, cnn_forward,
+                           [w.to(dev) for w in params], part, cfg, blocks)
+                 for dev, part in zip(mesh.devices, sharding.split(x))]
+        return sharding.join(parts)
     act = x
     for spec, w, block in zip(cfg.layers, params, blocks):
         acc = get_block(block).apply_batched(
             act, w, data_bits=spec.data_bits, coeff_bits=spec.coeff_bits)
         act = _requantize(acc, spec)
     return act
+
+
+def on_device(device: torch.device, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with ``device`` the current card where it
+    is one (the kernels launch on the current card's stream)."""
+    if device.type != "cuda":
+        return fn(*args, **kwargs)
+    with torch.cuda.device(device):
+        return fn(*args, **kwargs)
 
 
 def cnn_forward_loop(params, x, cfg: CNNConfig,

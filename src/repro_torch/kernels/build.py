@@ -253,3 +253,17 @@ def check(entry: str, err: int) -> None:
         msg = _libs[library_of(entry)].repro_error_string(err).decode()
         raise RuntimeError(f"{entry}: CUDA launch failed with error {err} "
                            f"({msg})")
+
+
+# the counters that a launch reports its work to (``core.hloscan``'s
+# ``OpCounter`` while it is active): a ctypes launch is no aten operator,
+# so no dispatch mode sees it
+WORK_SINKS: list = []
+
+
+def report_work(entry: str, flops: float, nbytes: float) -> None:
+    """Tell every active counter that ``entry`` launched: its operations
+    and the bytes it must move (each input read once, each output written
+    once)."""
+    for sink in WORK_SINKS:
+        sink(entry, flops, nbytes)

@@ -146,6 +146,9 @@ def _forward(x: torch.Tensor, w: torch.Tensor,
              torch.cuda.current_stream(x.device).cuda_stream)
     build.check("causal_conv1d", err)
     causal_conv1d.launches += 1
+    build.report_work("causal_conv1d", 2 * b * s * c * k,
+                      sum(t.numel() * t.element_size()
+                          for t in tensors + (y,)))
     return y
 
 

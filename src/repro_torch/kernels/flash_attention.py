@@ -193,6 +193,11 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check("flash_attention", err)
     flash_attention.launches += 1
+    # the causal half of 4·B·H·S·T·D
+    build.report_work("flash_attention",
+                      (2 if causal else 4) * b * h * s * t * d,
+                      sum(x.numel() * x.element_size()
+                          for x in (q, k, v, out)))
     return out
 
 

@@ -13,6 +13,13 @@ paths, the synchronous and async MoE paths and the LM path of
       [--params src/repro_torch/golden/quickstart_reference.npz] \\
       --requests 64 --max-batch 16
 
+  # data-parallel: each batch split over the host's CUDA cards (sync or
+  # --async; every card holds the weights, the first joins the outputs)
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload cnn --shard \
+      --plan src/repro_torch/plans/quickstart_v5e.json \
+      --params src/repro_torch/golden/quickstart_reference.npz \
+      --requests 64 --max-batch 16 [--async --occupancy 2.0]
+
   # the continuous-batching gateway under Poisson arrivals at
   # --occupancy × the measured full-batch capacity
   PYTHONPATH=src python -m repro_torch.launch.serve --workload cnn --async \
@@ -275,6 +282,15 @@ def _plan_params(args, plan, device):
                        device)
 
 
+def _data_mesh(args):
+    """``--shard``: a 1-D data mesh over every CUDA card of the host
+    (``parallel.sharding.cnn_data_mesh``; raises without a card)."""
+    if not args.shard:
+        return None
+    from repro_torch.parallel.sharding import cnn_data_mesh
+    return cnn_data_mesh()
+
+
 def run_cnn(args) -> Tuple[CNNEngine, List[ImageRequest], float]:
     """Serve ``args.requests`` sample images from the plan (``cnn_plan``);
     returns the engine, the served requests and the serving seconds."""
@@ -282,11 +298,12 @@ def run_cnn(args) -> Tuple[CNNEngine, List[ImageRequest], float]:
     plan = cnn_plan(args)
     cache = _ops_cache(args)
     tracker = _ops_tracker(args)
+    mesh = _data_mesh(args)
     t0 = time.perf_counter()
     engine = CNNEngine.from_plan(           # prepares every bucket
         plan, params=_plan_params(args, plan, device),
         serve_cfg=CNNServeConfig(max_batch=args.max_batch), device=device,
-        exec_cache=cache)
+        mesh=mesh, exec_cache=cache)
     sampler = _ops_sampler(tracker, {"engine": engine.stats})
     print(f"[serve] AOT warmup: {len(engine.compiled.buckets)} buckets × "
           f"{len(engine.cfg.layers)} layers compiled in "
@@ -301,7 +318,8 @@ def run_cnn(args) -> Tuple[CNNEngine, List[ImageRequest], float]:
     print(f"[serve] {len(reqs)} images in {dt:.2f}s "
           f"({len(reqs)/dt:.1f} images/s, "
           f"{stats['images_per_step']:.1f} images/step) on "
-          f"{device_name(device)}")
+          f"{device_name(engine.device)}"
+          + (f", batch sharded over {mesh.size} device(s)" if mesh else ""))
     print(f"[serve] occupancy histogram: {stats['occupancy_hist']}  "
           f"bucket hits: {stats['bucket_hits']}")
     _ops_finish(tracker, sampler, cache)
@@ -405,11 +423,11 @@ def run_cnn_async(args, *, keep_every: int = 0
     plan = cnn_plan(args)
     return _serve_async(args, plan, _plan_params(args, plan, device),
                         device, plan_id="plan0", unit="images",
-                        keep_every=keep_every)
+                        keep_every=keep_every, mesh=_data_mesh(args))
 
 
 def _serve_async(args, plan, params, device: torch.device, *, plan_id: str,
-                 unit: str, keep_every: int
+                 unit: str, keep_every: int, mesh=None
                  ) -> Tuple[AsyncCNNGateway, dict]:
     """The driver of ``run_cnn_async`` and ``run_moe_async``: ``plan``
     registered under ``plan_id`` in one gateway, Poisson arrivals from
@@ -425,8 +443,8 @@ def _serve_async(args, plan, params, device: torch.device, *, plan_id: str,
                                max_pending=args.max_pending,
                                max_inflight=args.max_inflight,
                                wait_budget_s=wait_budget),
-        plan_id=plan_id, params=params, device=device, exec_cache=cache,
-        tracker=tracker)
+        plan_id=plan_id, params=params, device=device, mesh=mesh,
+        exec_cache=cache, tracker=tracker)
     gw.stage_log = []
     sampler = _ops_sampler(tracker, {"gateway": gw.stats})
     compiled = gw.plans[plan_id].compiled
@@ -857,6 +875,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="tokens generated per request (lm)")
     ap.add_argument("--torch-device", default="cuda",
                     help="cuda (the default) or cpu")
+    ap.add_argument("--shard", action="store_true",
+                    help="shard each image batch over the host's CUDA "
+                         "cards (cnn, sync or --async)")
     ap.add_argument("--async", dest="async_", action="store_true",
                     help="serve through the continuous-batching gateway "
                          "under Poisson arrivals (cnn)")
@@ -921,6 +942,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     if args.store_root and (args.plan_store or args.cache_dir):
         ap.error("--store-root replaces --plan-store and --cache-dir; "
                  "give one or the other")
+    if args.shard and (args.workload != "cnn" or args.fleet
+                       or args.torch_device != "cuda"):
+        ap.error("--shard shards CNN batches over the CUDA cards, sync or "
+                 "--async; drop --fleet, --workload and --torch-device")
     if args.fleet and (args.plan or args.async_):
         ap.error("--fleet plans each worker's profile itself and serves "
                  "through gateways; drop --plan and --async")

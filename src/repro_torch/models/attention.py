@@ -8,6 +8,14 @@ card, its plain version on the CPU).  Every other call takes the
 reference's chunked path: the query is cut into chunks so the live
 logits tensor is O(B·H·chunk·T) instead of O(B·H·S·T); decode (a single
 query position against a cache) takes the direct path.
+
+Under a mesh (q, k and v are DTensors, placed by
+``parallel.sharding.ShardingRules``) K8, a ctypes launch that cannot take
+a DTensor, and the chunked path both run under ``local_map``: each
+device attends over its own shards, the batch over the data axes and
+the heads over ``model`` where both the query and the kv heads divide it
+(``_on_shards``).  Tensors on ``meta`` (the dry run) take the chunked
+path, the path the reference's dry run lowers.
 """
 
 from __future__ import annotations
@@ -18,6 +26,8 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import apply_rope, dense_init, softcap
+from repro_torch.parallel.sharding import (P, is_dtensor, kernel_placements,
+                                           shard_map, to_placements)
 
 NEG_INF = -2.3819763e38  # most-negative bf16-representable
 
@@ -56,14 +66,47 @@ def _attend(qc, k, v, row_pos, col_pos, *, causal, window, valid_len, cap,
 
 
 def uses_flash_kernel(s: int, *, causal: bool, window, cap, q_offset,
-                      kv_valid_len, logits_bf16: bool = False) -> bool:
+                      kv_valid_len, logits_bf16: bool = False,
+                      device: torch.device = None) -> bool:
     """The dispatch rule of K8, on the call's arguments alone: a
     full-sequence causal call (S > 1) with no window, softcap or cache
     masking, from position 0 — the prefill of a dense model.  Calls that
-    ask for bf16 logits keep the chunked path, which computes them so."""
+    ask for bf16 logits keep the chunked path, which computes them so,
+    and so do tensors on ``meta``, which no kernel runs on."""
     return (s > 1 and causal and window is None and cap is None
             and kv_valid_len is None and isinstance(q_offset, int)
-            and q_offset == 0 and not logits_bf16)
+            and q_offset == 0 and not logits_bf16
+            and (device is None or device.type != "meta"))
+
+
+def _maybe_batch_shard(x, enable: bool):
+    """The reference's §Perf hint: when the heads do not divide the
+    model axis the attention math is replicated across ``model``;
+    resharding the *batch* over (data, model) instead parallelizes it, at
+    the cost of two boundary reshards.  An explicit ``redistribute`` of
+    a DTensor; without a mesh (a plain tensor) nothing to do."""
+    if not enable or not is_dtensor(x):
+        return x
+    spec = P(("data", "model"), *([None] * (x.ndim - 1)))
+    return x.redistribute(placements=to_placements(spec, x.device_mesh))
+
+
+def _on_shards(fn, q, k, v):
+    """``fn(q, k, v)`` under ``local_map`` on DTensors: each device runs
+    it on its shards.  q keeps a shard of the batch (dim 0) and of the
+    heads (dim 2, where the axis divides both the query and the kv
+    heads, so every query head's kv head is local); any other placement
+    (a sequence-sharded cache, a partial sum) is gathered first.  k and
+    v follow q's placements; the output has them too."""
+    h, kh = q.shape[2], k.shape[2]
+    pl = kernel_placements(
+        q, lambda d, n: d == 0 or (d == 2 and h % n == 0 and kh % n == 0))
+    return shard_map(fn, q.device_mesh, (pl, pl, pl), pl)(q, k, v)
+
+
+def _flash(q, k, v):
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=True)
 
 
 def multi_head_attention(q, k, v, *, causal: bool,
@@ -72,21 +115,41 @@ def multi_head_attention(q, k, v, *, causal: bool,
                          q_offset=0,
                          kv_valid_len=None,
                          q_chunk: int = 1024,
+                         batch_shard: bool = False,
                          logits_bf16: bool = False):
     """q: (B,S,H,Dh); k,v: (B,T,KH,Dh) -> (B,S,H,Dh).
 
     ``q_offset``: absolute position of q[0] (decode against a cache).
     ``kv_valid_len``: scalar — mask cache positions >= it (decode).
-    The reference's ``batch_shard`` resharding hint has no counterpart on
-    one card and is dropped.
+    ``batch_shard``: reshard DTensor inputs and output with the batch
+    over (data, model) (``_maybe_batch_shard``).
     """
-    b, s, h, hd = q.shape
-    t, kh = k.shape[1], k.shape[2]
+    s = q.shape[1]
+    q = _maybe_batch_shard(q, batch_shard)
+    k = _maybe_batch_shard(k, batch_shard)
+    v = _maybe_batch_shard(v, batch_shard)
     if uses_flash_kernel(s, causal=causal, window=window, cap=cap,
                          q_offset=q_offset, kv_valid_len=kv_valid_len,
-                         logits_bf16=logits_bf16):
-        return flash_attention(q.contiguous(), k.contiguous(),
-                               v.contiguous(), causal=True)
+                         logits_bf16=logits_bf16, device=q.device):
+        attend = _flash
+    else:
+        def attend(q_, k_, v_):
+            return _chunked(q_, k_, v_, causal=causal, window=window,
+                            cap=cap, q_offset=q_offset,
+                            kv_valid_len=kv_valid_len, q_chunk=q_chunk,
+                            logits_bf16=logits_bf16)
+    # under a mesh K8 (a ctypes launch) and the chunk loop run on each
+    # device's shards
+    out = _on_shards(attend, q, k, v) if is_dtensor(q) else attend(q, k, v)
+    return _maybe_batch_shard(out, batch_shard)
+
+
+def _chunked(q, k, v, *, causal, window, cap, q_offset, kv_valid_len,
+             q_chunk, logits_bf16):
+    """The reference's attention: one chunk of queries at a time, or the
+    single query position of a decode step."""
+    b, s, h, hd = q.shape
+    t, kh = k.shape[1], k.shape[2]
     g = h // kh
     scale = 1.0 / (hd ** 0.5)
     ldt = torch.bfloat16 if logits_bf16 else torch.float32
@@ -155,6 +218,7 @@ def attention_block(p, x, cfg, *, causal=True, window=None,
         k, v = cross_kv
         out = multi_head_attention(q, k, v, causal=False,
                                    cap=cfg.attn_softcap,
+                                   batch_shard=cfg.attn_batch_shard,
                                    logits_bf16=cfg.attn_logits_bf16)
         new_kv = None
     else:
@@ -171,11 +235,13 @@ def attention_block(p, x, cfg, *, causal=True, window=None,
                 q, k_cache, v_cache, causal=False, window=window,
                 cap=cfg.attn_softcap, q_offset=pos,
                 kv_valid_len=pos + s,
+                batch_shard=cfg.attn_batch_shard,
                 logits_bf16=cfg.attn_logits_bf16)
             new_kv = (k_cache, v_cache)
         else:
             out = multi_head_attention(q, k, vv, causal=causal,
                                        window=window, cap=cfg.attn_softcap,
+                                       batch_shard=cfg.attn_batch_shard,
                                        logits_bf16=cfg.attn_logits_bf16)
             new_kv = (k, vv) if return_kv else None
     h, hd, d = p["wo"].shape

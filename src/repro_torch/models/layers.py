@@ -17,6 +17,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.sharding import is_dtensor, resolve_partial
+
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -76,7 +78,18 @@ def const_init(gen, shape, value: float, dtype=torch.float32):
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """RMS norm in float32 with the scale ``1 + weight`` (zero-initialized
-    weights are the identity scale), cast back to x's dtype."""
+    weights are the identity scale), cast back to x's dtype.  Under a
+    mesh a partial-sum input (the residual stream after a row-parallel
+    product) is all-reduced first and a normalized dim sharded over an
+    axis is gathered (Mamba's gated norm over its inner channels), so
+    the norm runs on whole rows."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+        last = Shard(x.ndim - 1)
+        x = resolve_partial(x)
+        if last in x.placements:
+            x = x.redistribute(placements=[
+                Replicate() if p == last else p for p in x.placements])
     dt = x.dtype
     x = x.float()
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)

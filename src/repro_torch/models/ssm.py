@@ -18,6 +18,13 @@ the SiLU — where the reference's model conv multiplies and adds in x's
 dtype; in bfloat16 the two differ by up to one bf16 unit.
 
 Decode carries (conv_state, ssm_state) and costs O(1) per token.
+
+Under a mesh (DTensor inputs) K7, a ctypes launch, runs under
+``local_map`` (``_conv_on_mesh``): the batch over the data axes and the
+channels over ``model`` where the taps are sharded there (``conv_x``,
+as ``ShardingRules`` places it).  The SSD runs under ``local_map`` too
+(``_ssd_on_mesh``), over the batch and the heads.  On ``meta`` (the dry
+run) the conv is K7's plain version.
 """
 
 from __future__ import annotations
@@ -27,7 +34,10 @@ import torch.nn.functional as F
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.conv1d import causal_conv1d as conv1d_kernel
+from repro_torch.kernels.conv1d import causal_conv1d_plain
 from repro_torch.models.layers import const_init, dense_init, rms_norm
+from repro_torch.parallel.sharding import (is_dtensor, kernel_placements,
+                                           shard_map)
 
 
 def ssm_dims(cfg):
@@ -74,9 +84,10 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, conv_state=None):
     """
     k = w.shape[0]
     s = x.shape[1]
-    if conv_state is not None:
-        conv_state = conv_state.contiguous()
-    y = conv1d_kernel(x.contiguous(), w.contiguous(), conv_state).to(x.dtype)
+    if is_dtensor(x):
+        y = _conv_on_mesh(x, w, conv_state).to(x.dtype)
+    else:
+        y = _conv(x, w, conv_state).to(x.dtype)
     if s >= k - 1:
         new_state = x[:, s - (k - 1):, :]
     elif conv_state is None:
@@ -84,6 +95,35 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, conv_state=None):
     else:
         new_state = torch.cat([conv_state[:, s:, :], x], dim=1)
     return F.silu(y), new_state
+
+
+def _conv(x, w, state=None):
+    """K7 on x, w and the state (contiguous); on ``meta`` (the dry run)
+    its plain version, which no kernel runs on."""
+    state = None if state is None else state.contiguous()
+    conv = causal_conv1d_plain if x.device.type == "meta" else conv1d_kernel
+    return conv(x.contiguous(), w.contiguous(), state)
+
+
+def _conv_on_mesh(x, w, conv_state):
+    """K7 under ``local_map`` on DTensors: x (B,S,C) keeps a shard of
+    the batch, and of the channels on each axis where the taps w (K,C)
+    are sharded too; anything else is gathered first.  The state follows
+    x; the float32 output has x's placements."""
+    from torch.distributed.tensor import Replicate, Shard
+    pl = kernel_placements(x, lambda d, n: d == 0)
+    wpl = [Replicate()] * len(pl)
+    for i, (px, pw) in enumerate(zip(x.placements, w.placements)):
+        if isinstance(px, Shard) and px.dim == 2 \
+                and isinstance(pw, Shard) and pw.dim == 1:
+            pl[i], wpl[i] = px, pw
+
+    def run(x_, w_, *state):
+        return _conv(x_, w_, *state)
+
+    args = (x, w) if conv_state is None else (x, w, conv_state)
+    placements = (pl, wpl) if conv_state is None else (pl, wpl, pl)
+    return shard_map(run, x.device_mesh, placements, pl)(*args)
 
 
 def _ssd_chunked(x, dt, a, B, C, chunk: int):
@@ -169,6 +209,32 @@ def _ssd_decode(x, dt, a, B, C, h):
     return y[:, None].to(x.dtype), h
 
 
+def _ssd_on_mesh(fn, x, dt, a, B, C, *h0):
+    """The SSD ``fn`` under ``local_map`` on DTensors (its chunk loop has
+    no collective): x (B,S,NH,P) keeps a shard of the batch and, with one
+    group of B and C, of the heads; dt, a, B, C and the state h
+    (B,NH,N,P) follow x's placements; anything else is gathered first."""
+    from torch.distributed.tensor import Replicate, Shard
+    g = B.shape[2]
+    pl_x = kernel_placements(x, lambda d, n: d == 0 or (d == 2 and g == 1))
+    r = Replicate()
+
+    def follow(batch, heads):
+        """Each axis's placement on a tensor whose batch dim is
+        ``batch`` and head dim ``heads`` (None: it has none)."""
+        out = []
+        for p in pl_x:
+            dim = (batch if p == Shard(0) else heads if p == Shard(2)
+                   else None)
+            out.append(r if dim is None else Shard(dim))
+        return out
+
+    ins = (pl_x, follow(0, 2), follow(None, 0), follow(0, None),
+           follow(0, None)) + ((follow(0, 1),) if h0 else ())
+    return shard_map(fn, x.device_mesh, ins,
+                     (pl_x, follow(0, 1)))(x, dt, a, B, C, *h0)
+
+
 def _softplus(x: torch.Tensor) -> torch.Tensor:
     """log(1 + exp(x)) as ``jax.nn.softplus`` computes it
     (``logaddexp(x, 0)``), without torch's linear branch above 20."""
@@ -211,12 +277,16 @@ def mamba_block(p, x: torch.Tensor, cfg, *, cache=None):
     if cache is None or s > 1:
         # prefill always starts from an empty SSM state, as the
         # reference's does (its cache's ``ssm`` is not read here)
-        y, h_final = _ssd_chunked(xh, dt, a, Bh, Ch,
-                                  min(s_cfg.chunk_size, s))
+        def ssd(x_, dt_, a_, B_, C_):
+            return _ssd_chunked(x_, dt_, a_, B_, C_,
+                                min(s_cfg.chunk_size, s))
+        args = (xh, dt, a, Bh, Ch)
     else:
         h0 = cache["ssm"] if cache else torch.zeros(
             (b, nh, n, s_cfg.head_dim), dtype=torch.float32, device=x.device)
-        y, h_final = _ssd_decode(xh, dt, a, Bh, Ch, h0)
+        ssd = _ssd_decode
+        args = (xh, dt, a, Bh, Ch, h0)
+    y, h_final = _ssd_on_mesh(ssd, *args) if is_dtensor(xh) else ssd(*args)
 
     y = y + xh.float() * p["d_skip"][None, None, :, None]
     y = y.reshape(b, s, inner).to(x.dtype)

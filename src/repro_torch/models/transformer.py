@@ -44,6 +44,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (const_init, dense_init, embed_init,
                                        init_mlp, mlp, rms_norm, softcap)
+from repro_torch.parallel.sharding import (gather_data_axes, is_dtensor,
+                                           kernel_placements, shard_map)
 from repro_torch.tree import tree_map
 
 
@@ -181,6 +183,18 @@ def init_cache(cfg, batch: int, max_len: int, enc_len: int = 0,
     return cache
 
 
+def _cache_on_mesh(cfg, batch: int, max_len: int, enc_len: int, mesh,
+                   device):
+    """``init_cache`` as DTensors on ``mesh``, each leaf placed by
+    ``ShardingRules.cache_spec`` (the placement the decode steps take
+    their cache in), each device allocating only its shard."""
+    from repro_torch.parallel.sharding import ShardingRules, placed_zeros
+    abstract = init_cache(cfg, batch, max_len, enc_len, "meta")
+    spec = ShardingRules(cfg, mesh).cache_spec(abstract)
+    return tree_map(lambda t, sp: placed_zeros(t.shape, t.dtype, mesh, sp,
+                                               device), abstract, spec)
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -255,6 +269,13 @@ def _run_sublayer(p, x, cfg, sub, *, mode, cache, cache_pos, enc_out):
     return x, new_cache, aux
 
 
+def _gathered(tree):
+    """``tree`` with every fsdp weight's data-axis shards gathered
+    (``parallel.sharding.gather_data_axes``); plain tensors as they
+    are."""
+    return tree_map(gather_data_axes, tree)
+
+
 def _remat(fn, *args):
     """``fn(*args)``, its activations recomputed in the backward
     (``jax.checkpoint``'s counterpart) where grad is enabled."""
@@ -266,12 +287,14 @@ def _remat(fn, *args):
 def _train_sublayer(p, x, cfg, sub, enc_out):
     """One sublayer in train mode under ``cfg.remat_policy``.  Returns
     (x, the MoE MLP's aux loss or None)."""
+    # an fsdp weight is gathered inside the rematerialized function, so
+    # the recompute gathers it again instead of keeping it whole
     def mixer(p_, x_, enc_):
-        return _mixer(p_, x_, cfg, sub, mode="train", cache=None,
+        return _mixer(_gathered(p_), x_, cfg, sub, mode="train", cache=None,
                       cache_pos=None, enc_out=enc_)[0]
 
     def mlp_half(p_, x_):
-        return _mlp_half(p_, x_, cfg, sub)
+        return _mlp_half(_gathered(p_), x_, cfg, sub)
 
     if cfg.remat_policy == "save_mixer_out":
         return _remat(mlp_half, p, _remat(mixer, p, x, enc_out))
@@ -299,14 +322,19 @@ def _run_stack(params, x, cfg, *, mode, cache=None, cache_pos=None,
                     aux = aux + a
                 continue
             sub_cache = index_tree(cache[key], i)
-            x, nc, _ = _run_sublayer(cyc_params[key], x, cfg, sub,
+            x, nc, _ = _run_sublayer(_gathered(cyc_params[key]), x, cfg, sub,
                                      mode=mode, cache=sub_cache,
                                      cache_pos=cache_pos, enc_out=enc_out)
             for name, val in nc.items():
                 dst = sub_cache[name]
-                if val.data_ptr() != dst.data_ptr():
+                if _data_ptr(val) != _data_ptr(dst):
                     dst.copy_(val)
     return x, aux
+
+
+def _data_ptr(t) -> int:
+    """Where ``t``'s data starts (a DTensor's: its local shard's)."""
+    return (t.to_local() if is_dtensor(t) else t).data_ptr()
 
 
 def _tokens(params, tokens) -> torch.Tensor:
@@ -321,8 +349,56 @@ def _frontend_input(params, batch, name, cfg) -> torch.Tensor:
         .to(cfg.torch_dtype)
 
 
+def _lookup(table, tokens):
+    """``table[tokens]``.  Under a mesh the gather runs under
+    ``local_map`` (DTensor's sharding rules for the gather's backward,
+    ``index_put``, fail on these placements): a vocab-sharded table is
+    looked up on each device among its own rows, the others masked to
+    zero, and the partial sums all-reduced — the vocab-parallel
+    embedding, an explicit ``redistribute``; a table sharded over
+    ``d_model`` is looked up shard by shard and the output gathered;
+    tokens keep their batch shards where the table is replicated over
+    that axis."""
+    if not is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = table.device_mesh
+    t_pl, x_pl, out_pl, vocab_axis = [], [], [], None
+    for a, (pt, px) in enumerate(zip(table.placements, tokens.placements)):
+        batch = isinstance(px, Shard) and px.dim == 0
+        if isinstance(pt, Shard) and not batch and (
+                pt.dim == 1 or vocab_axis is None):
+            t_pl.append(pt)
+            x_pl.append(Replicate())
+            if pt.dim == 0:
+                vocab_axis = a
+                out_pl.append(Partial())
+            else:
+                out_pl.append(Shard(2))
+        else:
+            t_pl.append(Replicate())
+            x_pl.append(Shard(0) if batch else Replicate())
+            out_pl.append(Shard(0) if batch else Replicate())
+
+    def look(tab, tok):
+        if vocab_axis is None:
+            return tab[tok]
+        rows = tab.shape[0]
+        idx = tok - mesh.get_local_rank(vocab_axis) * rows
+        ok = (idx >= 0) & (idx < rows)
+        return tab[idx.clamp(0, rows - 1)] * ok[..., None].to(tab.dtype)
+
+    x = shard_map(look, mesh, (t_pl, x_pl), out_pl)(table, tokens)
+    # the residual stream replicated over the model axis (Megatron's
+    # layout): a d_model-sharded stream would meet a head-sharded bias
+    # in Mamba's dt, which torch 2.11's DTensor cannot add
+    return x.redistribute(placements=[
+        Replicate() if isinstance(p, Partial) or p == Shard(2) else p
+        for p in x.placements])
+
+
 def _embed(params, tokens, cfg):
-    x = params["embed"][tokens]
+    x = _lookup(params["embed"], tokens)
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                              device=x.device)
@@ -330,7 +406,7 @@ def _embed(params, tokens, cfg):
 
 
 def _logits(params, x, cfg):
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = rms_norm(x, gather_data_axes(params["final_norm"]), cfg.norm_eps)
     if cfg.tie_embeddings:
         logits = x @ params["embed"].T
     else:
@@ -350,13 +426,13 @@ def _encode(params, frames, cfg):
     pe = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
     x = frames + pe[None].to(frames.dtype)
     for layer in unstack(params["enc_stack"], cfg.n_enc_layers):
-        p = layer["s0"]
+        p = _gathered(layer["s0"])
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         y, _ = attn_mod.attention_block(p["attn"], h, cfg, causal=False)
         x = x + y
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
         x = x + mlp(p["mlp"], h, cfg.act)
-    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+    return rms_norm(x, gather_data_axes(params["enc_norm"]), cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------
@@ -380,6 +456,19 @@ def _embed_inputs(params, batch, cfg):
     return x, tokens, n_front, enc_out
 
 
+def _gold(logits, labels):
+    """Each label's logit, (B, S).  Under a mesh the gather runs under
+    ``local_map`` on the batch shards with the vocab gathered whole:
+    DTensor's sharding rule for ``gather`` fails inside its masked
+    partial reduction (torch 2.13)."""
+    def take(lg, lb):
+        return torch.gather(lg, -1, lb[..., None])[..., 0]
+    if not is_dtensor(logits):
+        return take(logits, labels)
+    pl = kernel_placements(logits, lambda d, n: d == 0)
+    return shard_map(take, logits.device_mesh, (pl, pl), pl)(logits, labels)
+
+
 def forward_train(params, batch, cfg):
     """batch: tokens (B, S), labels (B, S) (below 0: masked), [patches
     (B, P, D) | frames (B, F, D)].  Returns (loss, metrics): the mean
@@ -395,7 +484,7 @@ def forward_train(params, batch, cfg):
 
     valid = labels >= 0
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    gold = _gold(logits, labels.clamp(min=0))
     nll = ((logz - gold) * valid).sum() / valid.sum().clamp(min=1)
     metrics = {"nll": nll, "aux": aux,
                "tokens": valid.sum().to(torch.int32)}
@@ -408,8 +497,13 @@ def prefill(params, batch, cfg):
     a vision prefix's P positions come first in the cache, so decode
     positions count them."""
     x, tokens, _, enc_out = _embed_inputs(params, batch, cfg)
-    cache = init_cache(cfg, tokens.shape[0], x.shape[1],
-                       0 if enc_out is None else enc_out.shape[1], x.device)
+    enc_len = 0 if enc_out is None else enc_out.shape[1]
+    if is_dtensor(x):
+        cache = _cache_on_mesh(cfg, tokens.shape[0], x.shape[1], enc_len,
+                               x.device_mesh, x.device)
+    else:
+        cache = init_cache(cfg, tokens.shape[0], x.shape[1], enc_len,
+                           x.device)
     x, _ = _run_stack(params, x, cfg, mode="prefill", cache=cache,
                       enc_out=enc_out)
     logits = _logits(params, x[:, -1:], cfg)

@@ -6,6 +6,14 @@ maps to 127; ``torch.round`` rounds half to even, as ``jnp.round``
 does), so the codes and scales equal the reference's.  Optimizer state
 drops from 8 bytes a parameter to about 2.
 
+Under a mesh (DTensor leaves placed by ``parallel.sharding``) the
+moments mirror their parameters' placements, and the int8 codec, which
+flattens a leaf into 256-element blocks of its global row-major order,
+gathers a sharded leaf whole first and places the codes and scales with
+their blocks over the data axes (the reference's ``opt_spec``); decoding
+gathers the blocks and takes the parameter's shards.  Both are explicit
+``redistribute`` calls (``_codec_gather``, ``_codec_place``).
+
 The reference returns new arrays (its train step donates the old ones).
 Here ``adamw_update`` writes the new parameters and the float32 moments
 into the tensors it is given and returns them, so a full-width model
@@ -19,6 +27,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.parallel.sharding import is_dtensor
 from repro_torch.tree import leaves, tree_map
 
 BLOCK = 256
@@ -38,10 +47,45 @@ class AdamWConfig:
 # block-wise int8 state codec
 # ---------------------------------------------------------------------------
 
+def _codec_gather(x):
+    """A DTensor leaf gathered whole on every device (the codec's
+    blocks follow the global order); a plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(placements=[Replicate()] * x.device_mesh.ndim)
+
+
+def _codec_place(t, like):
+    """Codes or scales ``t`` (blocks first), computed replicated from a
+    leaf placed like ``like``: the blocks over the data axes where they
+    divide them, replicated elsewhere, as ``ShardingRules.opt_spec``
+    places them."""
+    if not is_dtensor(like):
+        return t
+    from repro_torch.parallel.sharding import P, axis_sizes, to_placements
+    mesh = like.device_mesh
+    dp = ("pod", "data") if "pod" in axis_sizes(mesh) else ("data",)
+    size = 1
+    for a in dp:
+        size *= axis_sizes(mesh).get(a, 1)
+    lead = (dp if len(dp) > 1 else dp[0]) if t.shape[0] % size == 0 \
+        else None
+    return t.redistribute(placements=to_placements(
+        P(lead, *(None,) * (t.ndim - 1)), mesh))
+
+
 def quantize_state(x: torch.Tensor):
     """A float tensor → {"codes": int8 (blocks, 256), "scale": float32
     (blocks,)}, the flattened tensor zero-padded to whole blocks (one
-    float32 copy of it, divided and rounded in place)."""
+    float32 copy of it, divided and rounded in place).  A DTensor is
+    gathered whole first (``_codec_gather``) and its codes placed with
+    their blocks over the data axes (``_codec_place``)."""
+    if is_dtensor(x):
+        full = quantize_state(_codec_gather(x).to_local())
+        mesh = x.device_mesh
+        return {k: _codec_place(_replicated(v, mesh), x)
+                for k, v in full.items()}
     n = x.numel()
     blocks = torch.zeros(n + (-n) % BLOCK, dtype=torch.float32,
                          device=x.device)
@@ -53,8 +97,23 @@ def quantize_state(x: torch.Tensor):
     return {"codes": codes, "scale": scale[:, 0]}
 
 
-def dequantize_state(q, shape) -> torch.Tensor:
-    """The float32 tensor of ``shape`` that ``q`` encodes."""
+def _replicated(t: torch.Tensor, mesh):
+    """A tensor every device holds whole, as a replicated DTensor."""
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def dequantize_state(q, shape, like=None) -> torch.Tensor:
+    """The float32 tensor of ``shape`` that ``q`` encodes; with a
+    DTensor ``like``, a DTensor placed like it (the blocks gathered
+    whole first)."""
+    if is_dtensor(q["codes"]):
+        full = dequantize_state({k: _codec_gather(v).to_local()
+                                 for k, v in q.items()}, shape)
+        out = _replicated(full, q["codes"].device_mesh)
+        return out if like is None else \
+            out.redistribute(placements=like.placements)
     blocks = q["codes"].float().mul_(q["scale"][:, None])
     n = 1
     for d in shape:
@@ -70,10 +129,14 @@ def adamw_init(params, cfg: AdamWConfig):
     """Step 0 and zero moments (float32, or int8 codes) for every leaf,
     on the leaves' devices."""
     def zeros_like_state(p):
-        z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        # a DTensor's moments mirror its placements
+        z = torch.zeros_like(p, dtype=torch.float32)
         return quantize_state(z) if cfg.state_dtype == "int8" else z
-    device = leaves(params)[0].device
-    return {"step": torch.zeros((), dtype=torch.int32, device=device),
+    first = leaves(params)[0]
+    step = torch.zeros((), dtype=torch.int32, device=first.device)
+    if is_dtensor(first):
+        step = _replicated(step, first.device_mesh)
+    return {"step": step,
             "m": tree_map(zeros_like_state, params),
             "v": tree_map(zeros_like_state, params)}
 
@@ -97,8 +160,8 @@ def adamw_update(grads, opt_state, params, lr, cfg: AdamWConfig):
     clip = torch.clamp(torch.full_like(gnorm, cfg.grad_clip) / (gnorm + 1e-9),
                        max=1.0)
     stepf = step.float()
-    b1c = 1 - torch.pow(torch.tensor(cfg.b1, device=stepf.device), stepf)
-    b2c = 1 - torch.pow(torch.tensor(cfg.b2, device=stepf.device), stepf)
+    b1c = 1 - torch.pow(torch.full_like(stepf, cfg.b1), stepf)
+    b2c = 1 - torch.pow(torch.full_like(stepf, cfg.b2), stepf)
     q8 = cfg.state_dtype == "int8"
 
     @torch.no_grad()
@@ -106,8 +169,8 @@ def adamw_update(grads, opt_state, params, lr, cfg: AdamWConfig):
         # the reference's expressions, each op rounded as there (no fused
         # multiply-add), on as few float32 temporaries as will do
         g = g.to(torch.float32, copy=True).mul_(clip)
-        m_f = dequantize_state(m, g.shape) if q8 else m
-        v_f = dequantize_state(v, g.shape) if q8 else v
+        m_f = dequantize_state(m, g.shape, g) if q8 else m
+        v_f = dequantize_state(v, g.shape, g) if q8 else v
         m_f.mul_(cfg.b1).add_(g * (1 - cfg.b1))
         v_f.mul_(cfg.b2).add_(g.square_().mul_(1 - cfg.b2))
         del g

@@ -1,2 +1,4 @@
 """Multi-device helpers of the port (counterpart of ``repro.parallel``):
-so far the gradient codec the train step uses."""
+the sharding rules and DTensor placements (``sharding``), the pipeline
+schedule (``pipeline``) and the gradient codec the train step uses
+(``compress``)."""

@@ -203,6 +203,8 @@ class CompiledModel:
     ``_prepare_layer(i, b)``   the ``(params, x) -> y`` launch for a bucket
     ``_layer_params(i)``       the device-resident params passed per call
     ``_empty_output()``        the zero-batch result
+    ``_place_batch``/``_gather_batch``  optional placement of a padded
+                               bucket and the gathering of its output
     ``sample_inputs(k)``       canonical request generator
     ``validate_input(x)``      per-workload admission check
     """
@@ -241,6 +243,16 @@ class CompiledModel:
 
     def _empty_output(self):
         raise NotImplementedError
+
+    def _place_batch(self, xb, bucket: int):
+        """Optional pre-dispatch placement of a padded bucket (mesh
+        sharding); the identity here."""
+        return xb
+
+    def _gather_batch(self, act, bucket: int):
+        """The bucket's output on ``device`` from whatever the last
+        launch returned; the identity here."""
+        return act
 
     def sample_inputs(self, k: int, seed: int = 0):
         """``k`` random requests matching this executor's input
@@ -294,7 +306,7 @@ class CompiledModel:
         bucket = self.bucket_for(n)
         if n < bucket:
             xb = torch.cat([xb, xb.new_zeros((bucket - n,) + xb.shape[1:])])
-        act = xb
+        act = self._place_batch(xb, bucket)
         for i in range(self.num_layers):
             if should_abort is not None and should_abort():
                 raise DispatchAborted(
@@ -303,7 +315,7 @@ class CompiledModel:
             act = self._compile_layer(i, bucket)(self._layer_params(i), act)
         with self._stats_lock:
             self.bucket_hits[bucket] += 1
-        return act[:n]
+        return self._gather_batch(act, bucket)[:n]
 
     def __call__(self, x, *, should_abort=None) -> torch.Tensor:
         """x: one ``in_shape`` request or an ``(N, *in_shape)`` batch
@@ -431,28 +443,57 @@ class LayerLaunch:
             coeff_bits=self.spec.coeff_bits, shift=self.spec.shift)
 
 
+class ShardedLaunch:
+    """One (layer, bucket) launch over a ``CNNDataMesh``: a
+    ``LayerLaunch`` per device at the slice that device runs (the
+    bucket split over the devices where it divides their count, else
+    the whole bucket on each), called as ``launch(ws, xs)`` with the
+    per-device weights and slices, each on its own card."""
+
+    def __init__(self, launches: Sequence[LayerLaunch]):
+        self.launches = tuple(launches)
+
+    def __call__(self, ws, xs):
+        from repro_torch.core.cnn import on_device
+        return [on_device(launch.device, launch, w, x)
+                for launch, w, x in zip(self.launches, ws, xs)]
+
+
 class CompiledCNN(CompiledModel):
     """The convolution backend: batch-bucketed executor for one planned
     CNN deployment, on ``device`` (``"cuda"`` unless the caller asks for
     the CPU; asking for ``cuda`` without a card raises).  Bit-exact vs
-    ``cnn_forward_ref`` at every batch size."""
+    ``cnn_forward_ref`` at every batch size.
+
+    ``mesh`` (a ``parallel.sharding.CNNDataMesh``) serves data-parallel:
+    each bucket splits over the mesh's devices by
+    ``cnn_batch_sharding`` (replicated where it does not divide them),
+    every device holds the weights and runs its slice through its own
+    launches (``ShardedLaunch``), and the output is joined on the first
+    device, which is ``device``.  The mesh is part of every cache key,
+    as in the reference."""
 
     kind = "cnn"
     input_noun = "image"
 
     def __init__(self, cfg: CNNConfig, params, blocks: Sequence[BlockLike],
                  *, max_batch: int = 16, device: DeviceLike = "cuda",
-                 warmup: bool = True,
+                 mesh=None, warmup: bool = True,
                  exec_cache: Optional[ExecutableCache] = None):
         blocks = [get_block(b) for b in blocks]
         if len(blocks) != len(cfg.layers):
             raise ValueError(
                 f"need one block per layer: {len(blocks)} blocks "
                 f"for {len(cfg.layers)} layers")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.devices[0] if mesh is not None \
+            else resolve_device(device)
         self.cfg = cfg
         self.params: List[torch.Tensor] = [
             torch.as_tensor(w).to(self.device).contiguous() for w in params]
+        # every device of the mesh holds the weights
+        self._replicas = None if mesh is None else [
+            [w.to(dev) for w in self.params] for dev in mesh.devices]
         self.blocks = blocks
         self.num_layers = len(cfg.layers)
 
@@ -467,7 +508,7 @@ class CompiledCNN(CompiledModel):
     def from_plan(cls, plan, cfg: Optional[CNNConfig] = None, *,
                   params=None, generator: Optional[torch.Generator] = None,
                   max_batch: int = 16, device: DeviceLike = "cuda",
-                  warmup: bool = True,
+                  mesh=None, warmup: bool = True,
                   exec_cache: Optional[ExecutableCache] = None
                   ) -> "CompiledCNN":
         """Executor for a planned deployment: each layer runs the
@@ -482,7 +523,8 @@ class CompiledCNN(CompiledModel):
                 generator = torch.Generator().manual_seed(0)
             params = init_cnn(generator, pcfg)
         return cls(pcfg, params, plan.block_names(), max_batch=max_batch,
-                   device=device, warmup=warmup, exec_cache=exec_cache)
+                   device=device, mesh=mesh, warmup=warmup,
+                   exec_cache=exec_cache)
 
     @classmethod
     def from_json(cls, text: str, **kw) -> "CompiledCNN":
@@ -496,7 +538,7 @@ class CompiledCNN(CompiledModel):
         ``build.prepare`` (the missing ones built together, one ``nvcc``
         each), where preparing layer by layer would build them one
         after another."""
-        if self.device.type == "cuda":
+        if any(d.type == "cuda" for d in self._devices()):
             build.prepare(sorted({
                 lib for blk, spec in zip(self.blocks, self.cfg.layers)
                 for lib in blk.serving_kernels(spec.data_bits,
@@ -505,22 +547,50 @@ class CompiledCNN(CompiledModel):
         return super().warmup()
 
     # -- backend hooks ----------------------------------------------------
+    def _devices(self) -> Tuple[torch.device, ...]:
+        return self.mesh.devices if self.mesh is not None else (self.device,)
+
     def _layer_key(self, i: int, bucket: int) -> tuple:
         spec = self.cfg.layers[i]
+        mesh = () if self.mesh is None else (self.mesh.token,)
         return (self.blocks[i].name, spec.data_bits, spec.coeff_bits,
                 spec.shift, spec.in_channels, spec.out_channels,
-                self.cfg.img_h, self.cfg.img_w, self.device, bucket)
+                self.cfg.img_h, self.cfg.img_w, self.device) + mesh \
+            + (bucket,)
 
-    def _prepare_layer(self, i: int, bucket: int) -> LayerLaunch:
+    def _prepare_layer(self, i: int, bucket: int):
         spec = self.cfg.layers[i]
-        return LayerLaunch(
-            self.blocks[i], spec,
-            (bucket, self.cfg.img_h, self.cfg.img_w, spec.in_channels),
-            conv2d.container_dtype(spec.data_bits), self.device,
-            kernel_dir=self.cache.kernel_dir)
 
-    def _layer_params(self, i: int) -> torch.Tensor:
-        return self.params[i]
+        def launch(n, device):
+            return LayerLaunch(
+                self.blocks[i], spec,
+                (n, self.cfg.img_h, self.cfg.img_w, spec.in_channels),
+                conv2d.container_dtype(spec.data_bits), device,
+                kernel_dir=self.cache.kernel_dir)
+
+        if self.mesh is None:
+            return launch(bucket, self.device)
+        from repro_torch.parallel.sharding import cnn_batch_sharding
+        sharded = cnn_batch_sharding(self.mesh, bucket).sharded
+        n = bucket // self.mesh.size if sharded else bucket
+        return ShardedLaunch([launch(n, d) for d in self.mesh.devices])
+
+    def _layer_params(self, i: int):
+        if self.mesh is None:
+            return self.params[i]
+        return [ws[i] for ws in self._replicas]
+
+    def _place_batch(self, xb, bucket: int):
+        if self.mesh is None:
+            return xb
+        from repro_torch.parallel.sharding import cnn_batch_sharding
+        return cnn_batch_sharding(self.mesh, bucket).split(xb)
+
+    def _gather_batch(self, act, bucket: int):
+        if self.mesh is None:
+            return act
+        from repro_torch.parallel.sharding import cnn_batch_sharding
+        return cnn_batch_sharding(self.mesh, bucket).join(act)
 
     def _empty_output(self) -> torch.Tensor:
         last = self.cfg.layers[-1]

@@ -78,7 +78,8 @@ class WorkloadSpec:
 
     def compile(self, plan, *, params=None,
                 generator: Optional[torch.Generator] = None,
-                max_batch: int = 16, device="cuda", warmup: bool = True,
+                max_batch: int = 16, device="cuda", mesh=None,
+                warmup: bool = True,
                 exec_cache: Optional[ExecutableCache] = None
                 ) -> CompiledModel:
         raise NotImplementedError
@@ -130,15 +131,16 @@ def workload_spec(plan: DeploymentPlan) -> WorkloadSpec:
 
 def compile_plan(plan: DeploymentPlan, *, params=None,
                  generator: Optional[torch.Generator] = None,
-                 max_batch: int = 16, device="cuda", warmup: bool = True,
+                 max_batch: int = 16, device="cuda", mesh=None,
+                 warmup: bool = True,
                  exec_cache: Optional[ExecutableCache] = None
                  ) -> CompiledModel:
     """Any plan → its batch-bucketed executor, dispatched through the
     workload registry (the construction path ``CNNEngine.from_plan``
-    uses)."""
+    uses); ``mesh`` shards a CNN plan's batches."""
     return workload_spec(plan).compile(
         plan, params=params, generator=generator, max_batch=max_batch,
-        device=device, warmup=warmup, exec_cache=exec_cache)
+        device=device, mesh=mesh, warmup=warmup, exec_cache=exec_cache)
 
 
 @register_workload
@@ -177,13 +179,14 @@ class CNNWorkloadSpec(WorkloadSpec):
 
     def compile(self, plan, *, params=None,
                 generator: Optional[torch.Generator] = None,
-                max_batch: int = 16, device="cuda", warmup: bool = True,
+                max_batch: int = 16, device="cuda", mesh=None,
+                warmup: bool = True,
                 exec_cache: Optional[ExecutableCache] = None
                 ) -> CompiledModel:
         from repro_torch.runtime.compiled import CompiledCNN
         return CompiledCNN.from_plan(
             plan, self.cnn, params=params, generator=generator,
-            max_batch=max_batch, device=device, warmup=warmup,
+            max_batch=max_batch, device=device, mesh=mesh, warmup=warmup,
             exec_cache=exec_cache)
 
 
@@ -270,9 +273,13 @@ class MoEWorkloadSpec(WorkloadSpec):
 
     def compile(self, plan, *, params=None,
                 generator: Optional[torch.Generator] = None,
-                max_batch: int = 16, device="cuda", warmup: bool = True,
+                max_batch: int = 16, device="cuda", mesh=None,
+                warmup: bool = True,
                 exec_cache: Optional[ExecutableCache] = None
                 ) -> CompiledModel:
+        if mesh is not None:
+            raise ValueError("a data-parallel mesh serves CNN plans; the "
+                             "MoE workload runs on one device")
         return CompiledMoE.from_plan(
             plan, params=params, generator=generator, max_batch=max_batch,
             device=device, warmup=warmup, exec_cache=exec_cache)

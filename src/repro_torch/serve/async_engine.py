@@ -541,11 +541,13 @@ class AsyncCNNGateway(SlotPool):
     def register_plan(self, plan, *, plan_id: Optional[str] = None,
                       params=None,
                       generator: Optional[torch.Generator] = None,
-                      device: DeviceLike = "cuda",
+                      device: DeviceLike = "cuda", mesh=None,
                       compiled: Optional[CompiledModel] = None) -> str:
         """Route ``plan`` through this gateway: the plan's
-        ``WorkloadSpec`` builds the compiled backend on ``device``
-        (``runtime.compile_plan``; ``cuda`` without a card raises): a
+        ``WorkloadSpec`` builds the compiled backend on ``device``, or
+        data-parallel over ``mesh`` (a ``parallel.sharding.CNNDataMesh``,
+        CNN plans; ``runtime.compile_plan``; ``cuda`` without a card
+        raises): a
         ``cnn`` or a ``moe`` plan.  A workload kind the port does not
         serve yet raises ``NotImplementedError`` here, and an unknown
         one ``ValueError``, never inside a dispatch.  All
@@ -564,8 +566,8 @@ class AsyncCNNGateway(SlotPool):
             get_workload(workload_spec(plan).kind)
             compiled = compile_plan(
                 plan, params=params, generator=generator, device=device,
-                max_batch=self.cfg.max_batch, warmup=self.cfg.aot_warmup,
-                exec_cache=self.exec_cache)
+                mesh=mesh, max_batch=self.cfg.max_batch,
+                warmup=self.cfg.aot_warmup, exec_cache=self.exec_cache)
         elif compiled.max_batch < self.cfg.max_batch:
             raise ValueError(
                 f"compiled max_batch={compiled.max_batch} smaller than "
@@ -581,14 +583,14 @@ class AsyncCNNGateway(SlotPool):
     def from_plan(cls, plan, cfg: Optional[AsyncServeConfig] = None, *,
                   plan_id: Optional[str] = None, params=None,
                   generator: Optional[torch.Generator] = None,
-                  device: DeviceLike = "cuda",
+                  device: DeviceLike = "cuda", mesh=None,
                   clock: Callable[[], float] = time.monotonic,
                   exec_cache: Optional[ExecutableCache] = None,
                   tracker=None, faults=None) -> "AsyncCNNGateway":
         gw = cls(cfg, clock=clock, exec_cache=exec_cache, tracker=tracker,
                  faults=faults)
         gw.register_plan(plan, plan_id=plan_id, params=params,
-                         generator=generator, device=device)
+                         generator=generator, device=device, mesh=mesh)
         return gw
 
     def _track(self, event: str, **fields) -> None:

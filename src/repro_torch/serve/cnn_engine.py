@@ -51,7 +51,7 @@ class ImageRequest:
 class CNNEngine(SlotPool):
     def __init__(self, cfg: Optional[CNNConfig] = None, params=None,
                  blocks: Optional[Sequence[BlockLike]] = None,
-                 serve_cfg: Optional[CNNServeConfig] = None, *,
+                 serve_cfg: Optional[CNNServeConfig] = None, mesh=None, *,
                  compiled: Optional[CompiledModel] = None,
                  exec_cache=None, device: DeviceLike = "cuda"):
         serve_cfg = serve_cfg if serve_cfg is not None else CNNServeConfig()
@@ -59,7 +59,7 @@ class CNNEngine(SlotPool):
         if compiled is None:
             compiled = CompiledCNN(cfg, params, blocks,
                                    max_batch=serve_cfg.max_batch,
-                                   device=device,
+                                   device=device, mesh=mesh,
                                    warmup=serve_cfg.aot_warmup,
                                    exec_cache=exec_cache)
         elif compiled.max_batch < serve_cfg.max_batch:
@@ -72,6 +72,7 @@ class CNNEngine(SlotPool):
         self.params = getattr(compiled, "params", None)
         self.blocks = getattr(compiled, "blocks", None)
         self.serve = serve_cfg
+        self.mesh = getattr(compiled, "mesh", None)
         self.device = compiled.device
         self.in_shape = compiled.in_shape
         self.in_dtype = compiled.in_dtype
@@ -82,26 +83,28 @@ class CNNEngine(SlotPool):
     @classmethod
     def from_plan(cls, plan, cfg: Optional[CNNConfig] = None, *,
                   params=None, generator: Optional[torch.Generator] = None,
-                  serve_cfg: Optional[CNNServeConfig] = None,
+                  serve_cfg: Optional[CNNServeConfig] = None, mesh=None,
                   exec_cache=None, device: DeviceLike = "cuda"
                   ) -> "CNNEngine":
         """Engine for a planned deployment: the plan's ``WorkloadSpec``
         builds the compiled backend (``runtime.compile_plan``).  ``cfg``
         overrides the network embedded in the plan; ``params`` default
-        to a seeded draw at the planned precisions."""
+        to a seeded draw at the planned precisions.  ``mesh`` (a
+        ``parallel.sharding.CNNDataMesh``) shards each bucket's batch
+        over its devices (CNN plans)."""
         serve_cfg = serve_cfg if serve_cfg is not None else CNNServeConfig()
         if serve_cfg.max_batch < 1:       # fail before preparing anything
             raise ValueError(f"max_batch={serve_cfg.max_batch} must be ≥ 1")
         if cfg is not None:
             compiled = CompiledCNN.from_plan(
                 plan, cfg, params=params, generator=generator,
-                max_batch=serve_cfg.max_batch, device=device,
+                max_batch=serve_cfg.max_batch, device=device, mesh=mesh,
                 warmup=serve_cfg.aot_warmup, exec_cache=exec_cache)
         else:
             from repro_torch.runtime.workloads import compile_plan
             compiled = compile_plan(
                 plan, params=params, generator=generator,
-                max_batch=serve_cfg.max_batch, device=device,
+                max_batch=serve_cfg.max_batch, device=device, mesh=mesh,
                 warmup=serve_cfg.aot_warmup, exec_cache=exec_cache)
         return cls(serve_cfg=serve_cfg, compiled=compiled)
 

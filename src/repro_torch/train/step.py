@@ -6,15 +6,45 @@ for ``jit``; these run eagerly.  The loss's gradient is
 tensor of the caller's tree is marked as requiring grad; the update then
 writes the new parameters and float32 moments in place
 (``optim.adamw``).
+
+The sharded steps are the same functions over DTensor trees placed by
+``parallel.sharding.ShardingRules`` (params, optimizer state, batch and
+cache): DTensor propagates the placements through the model, as GSPMD
+does through the reference's jitted step, and each step runs under
+``implicit_replication`` so the model's own plain tensors (positions,
+masks, constants) count as replicated.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 from repro_torch.optim import AdamWConfig, adamw_update
 from repro_torch.parallel.compress import compress_grads_int8, decompress_grads
+from repro_torch.parallel.sharding import is_dtensor
 from repro_torch.tree import leaves, tree_map
+
+
+def mesh_scope(params):
+    """``implicit_replication`` where ``params`` are DTensors (a sharded
+    step), else nothing."""
+    if is_dtensor(leaves(params)[0]):
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        return implicit_replication()
+    return contextlib.nullcontext()
+
+
+def _like(g, p):
+    """A DTensor gradient placed as its parameter: DTensor leaves a
+    replicated parameter's gradient as a partial sum over the devices
+    that used it, and this ``redistribute`` is the data-parallel
+    gradient reduction GSPMD inserts for the reference."""
+    if is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(placements=p.placements)
+    return g
 
 
 def loss_and_grads(model, params, batch):
@@ -27,7 +57,7 @@ def loss_and_grads(model, params, batch):
         flat = leaves(req)
         loss, metrics = model.forward_train(req, batch)
         grads = torch.autograd.grad(loss, flat, allow_unused=True)
-    grads = iter([torch.zeros_like(p) if g is None else g
+    grads = iter([torch.zeros_like(p) if g is None else _like(g, p)
                   for p, g in zip(flat, grads)])
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, tree_map(lambda _: next(grads), params)
@@ -46,8 +76,8 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, lr: float = 3e-4,
     """
 
     def accumulate(params, batch):
-        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                             device=p.device), params)
+        acc = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                       params)
         losses, metricses = [], []
         for i in range(microbatches):
             mb_batch = {k: v[i * (len(v) // microbatches):
@@ -64,14 +94,15 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, lr: float = 3e-4,
         return torch.stack(losses).mean(), metrics, grads
 
     def step(params, opt_state, batch):
-        if microbatches > 1:
-            loss, metrics, grads = accumulate(params, batch)
-        else:
-            loss, metrics, grads = loss_and_grads(model, params, batch)
-        if grad_compression:
-            grads = decompress_grads(compress_grads_int8(grads), grads)
-        params, opt_state, opt_metrics = adamw_update(
-            grads, opt_state, params, lr, opt_cfg)
+        with mesh_scope(params):
+            if microbatches > 1:
+                loss, metrics, grads = accumulate(params, batch)
+            else:
+                loss, metrics, grads = loss_and_grads(model, params, batch)
+            if grad_compression:
+                grads = decompress_grads(compress_grads_int8(grads), grads)
+            params, opt_state, opt_metrics = adamw_update(
+                grads, opt_state, params, lr, opt_cfg)
         metrics = dict(metrics, loss=loss, **opt_metrics)
         return params, opt_state, metrics
 
@@ -82,9 +113,11 @@ def make_serve_steps(model):
     """Returns (prefill_fn, decode_fn)."""
 
     def prefill_fn(params, batch):
-        return model.prefill(params, batch)
+        with mesh_scope(params), torch.no_grad():
+            return model.prefill(params, batch)
 
     def decode_fn(params, cache, token, pos):
-        return model.decode_step(params, cache, token, pos)
+        with mesh_scope(params), torch.no_grad():
+            return model.decode_step(params, cache, token, pos)
 
     return prefill_fn, decode_fn

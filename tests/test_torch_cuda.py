@@ -14,7 +14,9 @@ cache's kernel libraries (a corrupt one quarantined and rebuilt; a warm
 start in a fresh process that builds nothing), and training (the
 gradients through K7's and K8's ``torch.autograd.Function``s against the
 CPU's, ``forward_train``'s loss and gradients against the reference's
-training golden).
+training golden), and the multi-device layer (sharded train and serve
+steps on a one-device NCCL mesh; on four cards, a (2, 2) full-width
+Llama-3.2-3B step, the MoE shard_map halves and the pipeline).
 Every test here carries the ``cuda`` marker and skips without a card;
 this file imports no JAX, so it also runs where JAX is not installed:
 
@@ -938,3 +940,118 @@ def test_forward_train_on_card_matches_golden(cuda, arch):
         want = g[f"{arch}/grads/{k}"]
         err = np.linalg.norm(v.cpu().numpy() - want) / np.linalg.norm(want)
         assert err < 1e-4, (k, err)
+
+
+# ---------------------------------------------------------------------------
+# the multi-device layer on the card: each case in child processes joined
+# by an NCCL group (``torch_parity.run_ranks``)
+# ---------------------------------------------------------------------------
+
+def _write_smoke_case(tmp_path, arch, **extra):
+    """The reference's smoke parameters of ``arch`` from the training
+    golden, as the ranks read them, and their config."""
+    import json
+    with np.load(TRAIN_GOLDEN) as z:
+        np.savez(tmp_path / "params.npz", **{
+            "p/" + k[len(arch) + len("/params/"):]: z[k] for k in z.files
+            if k.startswith(f"{arch}/params/")})
+    (tmp_path / "cfg.json").write_text(json.dumps(
+        {"arch": arch, "overrides": {"dtype": "float32"}, **extra}))
+
+
+def test_sharded_train_step_on_card(cuda, tmp_path):
+    """Llama smoke, float32, a one-device NCCL (data, model) mesh: the
+    sharded step's loss within 1e-5 of the unsharded step's, every
+    gradient within relative L2 1e-4 and every parameter after it within
+    1e-5; K8 launched through ``local_map`` twice per layer (forward and
+    remat recompute)."""
+    from torch_parity import run_ranks
+    from repro_torch import tree
+    _write_smoke_case(tmp_path, "llama3.2-3b")
+    out = run_ranks("sharded_train_step", 1, tmp_path, backend="nccl")[0]
+    assert abs(out["loss_sharded"] - out["loss"]) <= 1e-5 * abs(out["loss"])
+    assert out["k8_launches"] == 2 * smoke_config("llama3.2-3b").n_layers
+    for a, b, tol in (("grads", "grads_sharded", 1e-4),
+                      ("params", "params_sharded", 1e-5)):
+        want, got = tree.flatten(out[a]), tree.flatten(out[b])
+        for k, v in want.items():
+            err = float((got[k] - v).norm() / max(float(v.norm()), 1e-30))
+            assert err < tol, (a, k, err)
+
+
+def test_sharded_serve_on_card(cuda, tmp_path):
+    """Llama smoke on a one-device NCCL mesh: a sharded prefill (K8
+    through ``local_map``) and four decode steps against the unsharded
+    calls, logits within 1e-5."""
+    from torch_parity import run_ranks
+    _write_smoke_case(tmp_path, "llama3.2-3b")
+    np.save(tmp_path / "tokens.npy", np.random.default_rng(0).integers(
+        0, smoke_config("llama3.2-3b").vocab_size, (4, 12)))
+    out = run_ranks("sharded_serve", 1, tmp_path, backend="nccl")[0]
+    for key in ["prefill"] + [f"decode{i}" for i in range(4)]:
+        torch.testing.assert_close(out[key + "_sharded"], out[key],
+                                   rtol=1e-5, atol=1e-5, msg=key)
+
+
+def test_four_cards(cuda, tmp_path):
+    """Four NCCL ranks, one card each (skips below four cards): the
+    (2, 2) sharded Llama-3.2-3B train step at full width against one
+    card's (loss within 1e-3 relative, every randomly initialized
+    parameter leaf within relative L2 1e-3, bf16: a zero-initialized
+    norm's first AdamW update is ±lr wherever its gradient is near eps,
+    as ``test_torch_parallel`` says), the MoE shard_map halves against
+    the no-mesh path (a bf16 unit: the combine sums bf16 partials) and
+    the dense oracle (5e-3), and ``pipeline_forward`` over 4 stages
+    against the stages run in turn (1e-5)."""
+    import json
+    import dataclasses
+    from torch_parity import run_ranks
+    from repro_torch.models import moe as moe_mod
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards")
+    (tmp_path / "llama").mkdir()
+    full = run_ranks("full_width_train_step", 4, tmp_path / "llama",
+                     backend="nccl", timeout=900)
+    for out in full:
+        print(f"four cards, full width: {out}")
+        assert abs(out["loss_sharded"] - out["loss"]) <= \
+            1e-3 * abs(out["loss"]), out
+        assert out["worst_rel_l2"] < 1e-3, out
+
+    moe_dir = tmp_path / "moe"
+    moe_dir.mkdir()
+    cfg = smoke_config("qwen3-moe-30b-a3b").with_overrides(
+        dtype="float32", moe_groups=4, moe_combine_shardmap=True,
+        moe_shard_hints=True)
+    cfg = cfg.with_overrides(moe=dataclasses.replace(cfg.moe,
+                                                     capacity_factor=8.0))
+    p = moe_mod.init_moe(torch.Generator().manual_seed(0), cfg)
+    x = 0.1 * torch.randn((4, 16, cfg.d_model),
+                          generator=torch.Generator().manual_seed(1))
+    np.savez(moe_dir / "moe.npz", x=x.numpy(),
+             **{f"p/{k}": v.numpy() for k, v in p.items()})
+    (moe_dir / "cfg.json").write_text(json.dumps(
+        {"arch": "qwen3-moe-30b-a3b", "capacity_factor": 8.0,
+         "overrides": {"dtype": "float32", "moe_groups": 4,
+                       "moe_combine_shardmap": True,
+                       "moe_shard_hints": True}}))
+    out = run_ranks("moe_shardmap", 4, moe_dir, backend="nccl")[0]
+    dense = moe_mod.moe_layer_dense_ref(p, x, cfg)
+    assert float((out["out_sharded"] - dense).abs().max()) < 5e-3
+    for got, want in [(out["out_sharded"], out["out"])] + [
+            (out["grads_sharded"][k], g) for k, g in out["grads"].items()]:
+        assert float(got.abs().sum()) > 0
+        assert float((got - want).abs().max()) <= \
+            2.0 ** -8 * float(want.abs().max())
+
+    pipe_dir = tmp_path / "pipe"
+    pipe_dir.mkdir()
+    rng = np.random.default_rng(0)
+    w = (rng.normal(size=(4, 16, 16)) / 4).astype(np.float32)
+    xs = rng.normal(size=(8, 2, 16)).astype(np.float32)
+    np.savez(pipe_dir / "pipe.npz", w=w, x=xs)
+    ref = torch.from_numpy(xs)
+    for i in range(4):
+        ref = torch.tanh(ref @ torch.from_numpy(w[i]))
+    for out in run_ranks("pipeline", 4, pipe_dir, backend="nccl"):
+        assert float((out["out"] - ref).abs().max()) < 1e-5

@@ -97,6 +97,11 @@ SLICE_MODULES = (
     "repro_torch.parallel.compress", "repro_torch.train.step",
     "repro_torch.train.checkpoint", "repro_torch.train.loop",
     "repro_torch.launch.train",
+    # slice 13: multi-device and analysis
+    "repro_torch.parallel.sharding", "repro_torch.parallel.pipeline",
+    "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+    "repro_torch.core.hloscan", "repro_torch.core.roofline",
+    "repro_torch.core.model_dse",
 )
 
 
