@@ -61,6 +61,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.models.layers import _act, dense_init
+from repro_torch.ops import spans
 from repro_torch.parallel.sharding import (P, axis_sizes, mesh_of,
                                            shard_map, to_placements)
 
@@ -213,14 +214,16 @@ def _expert_ffn(expert_in: torch.Tensor, p, act: str,
                 hints: bool = False) -> torch.Tensor:
     """The experts' FFN over their buffers (e, c, d) → (e, c, d): three
     (two ungated) batched products (DTensor products under a mesh, the
-    hidden activations hinted to experts over ``model``)."""
-    h = torch.bmm(expert_in, p["w_up"])
-    if "w_gate" in p:
-        h = _act(torch.bmm(expert_in, p["w_gate"]), act) * h
-    else:
-        h = _act(h, act)
-    h = _hint(h, ("model", "data", None), hints)
-    return torch.bmm(h, p["w_down"])
+    hidden activations hinted to experts over ``model``), inside the
+    ``moe.experts`` span."""
+    with spans.span("moe.experts"):
+        h = torch.bmm(expert_in, p["w_up"])
+        if "w_gate" in p:
+            h = _act(torch.bmm(expert_in, p["w_gate"]), act) * h
+        else:
+            h = _act(h, act)
+        h = _hint(h, ("model", "data", None), hints)
+        return torch.bmm(h, p["w_down"])
 
 
 def _shared(p, xf: torch.Tensor, act: str) -> torch.Tensor:

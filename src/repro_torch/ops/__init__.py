@@ -16,26 +16,47 @@ of ``repro.ops``).
 * ``StoreRoot`` — one shared plan-store + executable-cache location
   for a whole fleet, with per-worker leases (``Lease``, ``LeaseHeld``),
   so a respawned worker warm-starts from its dead predecessor's
-  preparations (``--store-root``).
+  preparations (``--store-root``);
+* ``spans`` — the serving path's spans (``spans.RECORDER``): the
+  gateway's stages, each request's submit and queue wait, the
+  runtime's copies and layer loop, the MoE expert products and garbage
+  collection, on one monotonic clock.  They are recorded only while a
+  ``torch.profiler`` session records, each stretch of code also as a
+  ``record_function`` range: profile the server with CPU and CUDA
+  activity to see them on the trace's host lanes, over the kernels
+  they launch.
+
+``spans`` loads with the package, since the runtime and the models
+import it; the other modules load at the first use of one of their
+names, since ``cache`` builds on the runtime.
 """
 
-from repro_torch.ops.cache import (CACHE_FORMAT_VERSION,
-                                   PersistentExecutableCache,
-                                   cache_fingerprint)
-from repro_torch.ops.root import Lease, LeaseHeld, StoreRoot
-from repro_torch.ops.store import (PlanCorrupt, PlanNotFound, PlanRetired,
-                                   PlanStore, PlanStoreError,
-                                   PlanUnsupported)
-from repro_torch.ops.tracker import (JsonlTracker, NullTracker,
-                                     StatsSampler, Tracker, TrackerLog,
-                                     read_events, read_log)
+from importlib import import_module
 
-__all__ = [
-    "PlanStore", "PlanStoreError", "PlanNotFound", "PlanRetired",
-    "PlanCorrupt", "PlanUnsupported",
-    "PersistentExecutableCache", "cache_fingerprint",
-    "CACHE_FORMAT_VERSION",
-    "StoreRoot", "Lease", "LeaseHeld",
-    "Tracker", "NullTracker", "JsonlTracker", "StatsSampler",
-    "TrackerLog", "read_log", "read_events",
-]
+from repro_torch.ops import spans
+
+#: each exported name and the module that defines it
+_EXPORTS = {
+    "PlanStore": "store", "PlanStoreError": "store",
+    "PlanNotFound": "store", "PlanRetired": "store",
+    "PlanCorrupt": "store", "PlanUnsupported": "store",
+    "PersistentExecutableCache": "cache", "cache_fingerprint": "cache",
+    "CACHE_FORMAT_VERSION": "cache",
+    "StoreRoot": "root", "Lease": "root", "LeaseHeld": "root",
+    "Tracker": "tracker", "NullTracker": "tracker",
+    "JsonlTracker": "tracker", "StatsSampler": "tracker",
+    "TrackerLog": "tracker", "read_log": "tracker",
+    "read_events": "tracker",
+}
+
+__all__ = list(_EXPORTS) + ["spans"]
+
+
+def __getattr__(name: str):
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(import_module(f"{__name__}.{module}"), name)
+    globals()[name] = value
+    return value

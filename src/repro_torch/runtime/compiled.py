@@ -37,6 +37,7 @@ from repro_torch.blocks import BlockLike, ConvBlock, get_block
 from repro_torch.core.cnn import CNNConfig, ConvLayerSpec, init_cnn
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import build, conv2d
+from repro_torch.ops import spans
 
 
 def dtype_name(dtype: torch.dtype) -> str:
@@ -307,12 +308,14 @@ class CompiledModel:
         if n < bucket:
             xb = torch.cat([xb, xb.new_zeros((bucket - n,) + xb.shape[1:])])
         act = self._place_batch(xb, bucket)
-        for i in range(self.num_layers):
-            if should_abort is not None and should_abort():
-                raise DispatchAborted(
-                    f"dispatch abandoned before layer {i} "
-                    f"(all served requests cancelled)")
-            act = self._compile_layer(i, bucket)(self._layer_params(i), act)
+        with spans.span("runtime.layers"):
+            for i in range(self.num_layers):
+                if should_abort is not None and should_abort():
+                    raise DispatchAborted(
+                        f"dispatch abandoned before layer {i} "
+                        f"(all served requests cancelled)")
+                act = self._compile_layer(i, bucket)(self._layer_params(i),
+                                                     act)
         with self._stats_lock:
             self.bucket_hits[bucket] += 1
         return self._gather_batch(act, bucket)[:n]
@@ -340,7 +343,8 @@ class CompiledModel:
             self.calls += 1
         if x.shape[0] == 0:            # empty queue tick: nothing to run
             return self._empty_output()
-        x = x.to(self.device)
+        with spans.span("runtime.copy_in"):
+            x = x.to(self.device)
         outs = [self._run_bucket(x[s:s + self.max_batch], should_abort)
                 for s in range(0, x.shape[0], self.max_batch)]
         y = outs[0] if len(outs) == 1 else torch.cat(outs)

@@ -86,6 +86,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike
+from repro_torch.ops import spans
 from repro_torch.runtime.compiled import (CompiledModel, DispatchAborted,
                                           ExecutableCache, dtype_name)
 from repro_torch.runtime.workloads import (compile_plan, get_workload,
@@ -130,6 +131,9 @@ class AsyncRequest:
     priority: int = 0
     deadline: Optional[float] = None
     arrived_at: float = 0.0
+    # admission on the span clock (``time.perf_counter_ns``), taken
+    # whatever the gateway's ``clock``: where ``gateway.queue`` starts
+    admitted_ns: int = 0
     # terminal state, set exactly once by the scheduling core:
     # pending → done | expired | cancelled | failed | shed
     status: str = "pending"
@@ -422,11 +426,13 @@ class _PlanEntry:
 
 class DispatchStages(NamedTuple):
     """Seconds of one completed dispatch, stage by stage, on
-    ``time.perf_counter``: from the batch's pop in the drain loop to
+    ``time.perf_counter_ns``: from the batch's pop in the drain loop to
     its task starting (``to_task``), stacking the images (``stack``),
     the hop into the worker thread (``hop_in``), the forward and the
     copy to the host there (``forward``), the hop back to the loop
-    (``hop_back``), and finishing the requests' futures (``finish``)."""
+    (``hop_back``), and finishing the requests' futures (``finish``).
+    Each is the duration of the ``gateway.<stage>`` span of that name
+    (``runtime.forward`` for ``forward``; ``ops.spans``)."""
     n: int
     to_task: float
     stack: float
@@ -439,6 +445,14 @@ class DispatchStages(NamedTuple):
     def total(self) -> float:
         return (self.to_task + self.stack + self.hop_in + self.forward
                 + self.hop_back + self.finish)
+
+    @classmethod
+    def from_stamps(cls, n: int, stamps: Tuple[int, ...]
+                    ) -> "DispatchStages":
+        """The stages between seven successive stamps in ns (the pop,
+        the task's start, stacked, the worker's start and end, back on
+        the loop, finished)."""
+        return cls(n, *((b - a) / 1e9 for a, b in zip(stamps, stamps[1:])))
 
 
 def _device_scope(device: torch.device):
@@ -792,7 +806,16 @@ class AsyncCNNGateway(SlotPool):
         takes its slot; otherwise this arrival is the one refused.
         ``deadline`` is relative seconds from now; the returned future
         resolves to the output activations, raises ``DeadlineExpired``,
-        or is cancelled."""
+        or is cancelled.  Its own work is the ``gateway.submit`` span."""
+        if not spans.on():
+            return self._submit_nowait(image, plan_id, priority, deadline)
+        with spans.span("gateway.submit") as sp:
+            fut = self._submit_nowait(image, plan_id, priority, deadline)
+            sp.request = fut._req.request_id
+        return fut
+
+    def _submit_nowait(self, image, plan_id, priority, deadline
+                       ) -> "asyncio.Future":
         self._ensure_started()
         if self._closing:
             raise RuntimeError("gateway is closing")
@@ -889,6 +912,7 @@ class AsyncCNNGateway(SlotPool):
             await self._space.wait()
 
     def _bookkeep_admitted(self, req: AsyncRequest) -> None:
+        req.admitted_ns = time.perf_counter_ns()
         if req.status == "pending":
             # queued: wake the drain task
             orig = req._on_done
@@ -978,9 +1002,19 @@ class AsyncCNNGateway(SlotPool):
                 if batch:
                     slots = [self.occupy(r) for r in batch]
                     self._inflight += 1
+                    popped = time.perf_counter_ns()
+                    # a dispatch popped while a profiler records is
+                    # recorded whole; its id is its span's
+                    dispatch_id = 0
+                    if spans.on():
+                        dispatch_id = spans.RECORDER.new_id()
+                        for r in batch:
+                            spans.RECORDER.add(
+                                "gateway.queue", r.admitted_ns, popped,
+                                request=r.request_id, dispatch=dispatch_id)
                     flight = loop.create_task(self._run_batch(
                         self.plans[plan_id], batch, slots,
-                        popped_at=time.perf_counter()))
+                        popped_at=popped, dispatch_id=dispatch_id))
                     pending_flights.add(flight)
                     flight.add_done_callback(pending_flights.discard)
                     launched = True
@@ -992,17 +1026,24 @@ class AsyncCNNGateway(SlotPool):
             await self._wake.wait()
 
     async def _run_batch(self, entry: _PlanEntry, batch, slots, *,
-                         popped_at: float) -> None:
+                         popped_at: int, dispatch_id: int = 0) -> None:
+        """Run one popped batch: ``popped_at`` is the pop on
+        ``time.perf_counter_ns``; a ``dispatch_id`` (its
+        ``gateway.dispatch`` span's id, 0 for none) records its spans."""
         compiled = entry.compiled
         launched_at = self._rate_clock()
-        started = time.perf_counter()
-        worker = [0.0, 0.0]            # worker thread: start, end
+        started = time.perf_counter_ns()
+        record = dispatch_id > 0
+        ids = dict(parent=dispatch_id, dispatch=dispatch_id)
+        forward = []                   # the worker's stretch (its stamps)
         alive = [r for r in batch if r.status == "pending"]
         try:
             if alive:
-                images = torch.from_numpy(np.stack(
-                    [np.asarray(r.image, entry.np_dtype) for r in alive]))
-                stacked = time.perf_counter()
+                with spans.stamped("gateway.stack", record, start=started,
+                                   **ids) as stack:
+                    images = torch.from_numpy(np.stack(
+                        [np.asarray(r.image, entry.np_dtype)
+                         for r in alive]))
 
                 def abort() -> bool:
                     return all(r.status != "pending" for r in alive)
@@ -1011,12 +1052,13 @@ class AsyncCNNGateway(SlotPool):
                     # runs in the worker thread; the copy to the host
                     # waits for the device, so no future resolves before
                     # the batch has been computed
-                    worker[0] = time.perf_counter()
-                    with _device_scope(compiled.device):
-                        out = compiled(images, should_abort=abort) \
-                            .cpu().numpy()
-                    worker[1] = time.perf_counter()
-                    return out
+                    with spans.stamped("runtime.forward", record,
+                                       **ids) as fwd, \
+                            _device_scope(compiled.device):
+                        forward.append(fwd)
+                        y = compiled(images, should_abort=abort)
+                        with spans.span("gateway.copy_out"):
+                            return y.cpu().numpy()
 
                 try:
                     # chaos seam: a scheduled worker crash raises here
@@ -1040,21 +1082,24 @@ class AsyncCNNGateway(SlotPool):
                         self.failed += 1
                     out = None
                 if out is not None:
-                    back = time.perf_counter()
-                    done = 0
-                    for k, r in enumerate(alive):
-                        if r.status == "pending":
-                            r._finish("done", output=out[k])
-                            self.served += 1
-                            entry.served += 1
-                            done += 1
-                    self._note_step(len(alive), launched_at=launched_at)
+                    with spans.stamped("gateway.finish", record,
+                                       **ids) as finish:
+                        done = 0
+                        for k, r in enumerate(alive):
+                            if r.status == "pending":
+                                r._finish("done", output=out[k])
+                                self.served += 1
+                                entry.served += 1
+                                done += 1
+                        self._note_step(len(alive), launched_at=launched_at)
+                    fwd = forward[0]
+                    stamps = (popped_at, started, stack.end, fwd.start,
+                              fwd.end, finish.start, finish.end)
                     if self.stage_log is not None:
-                        self.stage_log.append(DispatchStages(
-                            len(alive), started - popped_at,
-                            stacked - started, worker[0] - stacked,
-                            worker[1] - worker[0], back - worker[1],
-                            time.perf_counter() - back))
+                        self.stage_log.append(
+                            DispatchStages.from_stamps(len(alive), stamps))
+                    if record:
+                        self._record_dispatch(dispatch_id, stamps)
                     self._track("dispatch_complete",
                                 plan_id=entry.plan_id, n=done)
         finally:
@@ -1063,6 +1108,18 @@ class AsyncCNNGateway(SlotPool):
                 self.release(s)       # hooks re-wake the drain task
             self._adapt_bound(force=True)   # fresh rate → fresh bound
             self._signal_space()
+
+    @staticmethod
+    def _record_dispatch(dispatch_id: int, stamps: Tuple[int, ...]) -> None:
+        """The dispatch's span and the children its stamps alone give
+        (the stack, the forward and the finish recorded themselves)."""
+        rec, ids = spans.RECORDER, dict(parent=dispatch_id,
+                                        dispatch=dispatch_id)
+        rec.add("gateway.dispatch", stamps[0], stamps[6],
+                span_id=dispatch_id, dispatch=dispatch_id)
+        rec.add("gateway.to_task", stamps[0], stamps[1], **ids)
+        rec.add("gateway.hop_in", stamps[2], stamps[3], **ids)
+        rec.add("gateway.hop_back", stamps[4], stamps[5], **ids)
 
     # -- fleet draining seam ----------------------------------------------
     def extract_queued(self) -> List[AsyncRequest]:
