@@ -156,6 +156,14 @@ order (any mismatch or error raises and the exit code is non-zero):
    or moved off it only by a fake-quant rounding flip (a value on a
    rounding boundary, found and printed), the CNN outputs exact, a MoE
    block refused on the CNN plan and an image on the MoE plan; then the
+   expert kernels ``moe_expert_gemm_gate_up`` and ``_down`` against their
+   plain version, the three ``torch.bmm`` of ``expert_ffn_bmm``, on every
+   filled row (rows past the fill NaN in their inputs; MOE_KERNEL_TOL)
+   at the benchmark cell's layer (E 128, capacity 64, d 2048, f 768, the
+   fills of a seeded 512-token dispatch and their filled share), at
+   bucket 1 and at a ragged shape, timed at both buckets against the
+   three ``torch.bmm`` (``library_ms``) beside their bound over the
+   filled rows (a device time below its bound not measured); then the
    full-width Qwen3-MoE-30B-A3B experts (2 layers, 32 tokens a block,
    d_model 2048, 128 experts, top 8, 768 wide) planned for ``v5e`` with
    fallback, compiled at max_batch 16 from a seeded draw on the card,
@@ -163,20 +171,25 @@ order (any mismatch or error raises and the exit code is non-zero):
    relative error against ``moe_layer_dense_ref``, one forward under
    ``torch.cuda.set_sync_debug_mode("error")``, ms per step at bucket 16
    by CUDA events, device ms, ops and idle share per step from a
-   profiler trace, tokens/s through ``CNNEngine`` for 256 blocks, and
-   the expert products' device time against their bound, each with the
-   card's name and power limit;
+   profiler trace, tokens/s through ``CNNEngine`` for 256 blocks (the
+   expert kernels launched twice a layer a forward, ``bmm_fallbacks``
+   0), each with the card's name and power limit;
 12. the rest of the LM zoo (K7, K8): Qwen3-MoE, Llama-4-Maverick,
    Jamba, Whisper and Pixtral at ``smoke_config`` in float32 against the
    JAX reference's golden file ``src/repro_torch/golden/
    lm_zoo_reference.npz`` (logits within 2e-3, the MoE archs' greedy
    engine tokens equal, two identical prompts in one wave among them; K8
    once per attention layer per prefill and never in decode, K7 three
-   times per Jamba Mamba layer per call); then Qwen3-MoE-30B-A3B at full
+   times per Jamba Mamba layer per call; the float32 MoE MLP of the MoE
+   archs on the expert kernels, ``moe_expert_ffn.launches`` set to 0
+   just before each arch and above 0 just after, 0 for the others); then
+   Qwen3-MoE-30B-A3B at full
    width and depth (48 layers, 61 GB of bf16 weights from a seeded
    generator) through the launcher's ``serve_lm`` with phase 10's
    traffic after a one-layer warm-up, the counters set to 0 just before
-   and read just after (K8 48 times per prefill, never in decode):
+   and read just after (K8 48 times per prefill, never in decode; the
+   bf16 MoE MLP's products on ``torch.bmm``: no expert kernel launch,
+   every call counted in ``bmm_fallbacks``):
    prefill ms per request, decode ms per step, tokens/s, peak memory, a
    profiler trace of 16 decode steps (device ms, idle share, device ops
    per step, against the step's byte bound), one decode step under
@@ -400,6 +413,11 @@ MOE_ATOL, MOE_REL_L2 = 1e-4, 1e-5
 MOE_EAGER_TOL = dict(rtol=1e-5, atol=1e-5)
 MOE_ARCH, MOE_MAX_BATCH, MOE_SEED = "qwen3-moe-30b-a3b", 16, 24
 MOE_TIMED_BLOCKS, MOE_PROFILED_STEPS = 256, 8
+# the expert kernels against their plain versions: float32 sums of 2048
+# (768) products in another order, outputs of order 1
+MOE_KERNEL_TOL = dict(rtol=1e-4, atol=1e-4)
+# the benchmark cell's dispatch: 32-token blocks, capacity factor 2
+MOE_BLOCK_TOKENS, MOE_CAPACITY_FACTOR = 32, 2.0
 # the LM-zoo phase: the five smoke archs against the JAX reference's
 # golden file; Qwen3-MoE-30B-A3B at full width and depth through serve_lm
 # with the LM traffic above; full-width cuts (depth, or None: whole), the
@@ -520,6 +538,18 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def device_events(prof):
+    """The operations of a ``torch.profiler`` trace that took device
+    time (kernels, copies, fills), without the device-side ranges of user
+    annotations: the port's spans are ``record_function`` ranges, which
+    the trace also lays on the device's timeline over the kernels they
+    hold."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.events()
+            if e.device_type != DeviceType.CPU and e.device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def device_ms(fn, kernel_name: str | None = None, iters: int = 50):
     """Mean device time per call of the CUDA kernels whose name holds
     ``kernel_name`` (of every kernel the calls launch where it is None:
@@ -528,7 +558,6 @@ def device_ms(fn, kernel_name: str | None = None, iters: int = 50):
     cost that the CUDA-event time of back-to-back calls includes.  None
     when the trace holds no device time for them (not measured)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -537,9 +566,8 @@ def device_ms(fn, kernel_name: str | None = None, iters: int = 50):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.device_time_total for e in prof.events()
-                   if e.device_type != DeviceType.CPU
-                   and (kernel_name is None or kernel_name in e.name))
+    total_us = sum(e.device_time_total for e in device_events(prof)
+                   if kernel_name is None or kernel_name in e.name)
     return total_us / iters / 1e3 if total_us else None
 
 
@@ -992,7 +1020,6 @@ def serve_profile(stem, step_ms):
     mean wall time per step).  None when the trace holds no device
     time (not measured)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import serve
     with profile(activities=[ProfilerActivity.CPU,
@@ -1000,11 +1027,10 @@ def serve_profile(stem, step_ms):
         engine, _, _ = serve.run_cnn(serve_args(stem, PROFILED_REQUESTS))
         torch.cuda.synchronize()
     by_name, ops, torch_ops = {}, 0, 0
-    for e in prof.events():
-        if e.device_type != DeviceType.CPU and e.device_time_total > 0:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
-            ops += 1
-            torch_ops += "at::native" in e.name
+    for e in device_events(prof):
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+        ops += 1
+        torch_ops += "at::native" in e.name
     if not by_name:
         print("[profile] the trace holds no device time: not measured")
         return None
@@ -2125,10 +2151,14 @@ def lm_golden(entries, path, archs, label):
     LM_GOLDEN_TOL (a vision prefix counted in the decode positions), the
     greedy engine tokens equal where the file holds them, K8 once per
     attention layer per prefill and never in decode, K7
-    K7_PER_MAMBA_LAYER times per Mamba layer per call."""
+    K7_PER_MAMBA_LAYER times per Mamba layer per call; the expert
+    kernels (a float32 gated SiLU MoE MLP in inference takes them)
+    launched by every arch with MoE layers and by no other
+    (``moe_expert_ffn.launches``, set to 0 just before)."""
     import numpy as np
     from repro_torch.configs import smoke_config
     from repro_torch.kernels import conv1d, flash_attention as fa
+    from repro_torch.kernels import moe_expert_gemm as meg
     from repro_torch.models import build_model
     from repro_torch.serve import Engine, Request, ServeConfig
 
@@ -2183,7 +2213,14 @@ def lm_golden(entries, path, archs, label):
                 tokens = [r.out_tokens for r in reqs]
             return float(max(errs)), calls, tokens
 
+        meg.moe_expert_ffn.launches = 0
         err, calls, tokens = drive(entries, f"{label} {arch}", want, run)
+        experts = meg.moe_expert_ffn.launches
+        if (experts > 0) != (cfg.moe is not None):
+            raise AssertionError(f"{arch}: the expert kernels launched "
+                                 f"{experts} times (MoE layers: "
+                                 f"{cfg.moe is not None})")
+        print(f"[{label} {arch}] moe_expert_ffn.launches {experts}")
         for kind, (k8, k7) in calls:
             if k8 != (attn if kind == "prefill" else 0) \
                     or k7 != K7_PER_MAMBA_LAYER * mamba:
@@ -2196,7 +2233,8 @@ def lm_golden(entries, path, archs, label):
         out[arch] = {"max_abs_err": err, "engine_tokens_equal":
                      None if tokens is None else same,
                      "k8_per_prefill": attn, "k7_per_call":
-                     K7_PER_MAMBA_LAYER * mamba}
+                     K7_PER_MAMBA_LAYER * mamba,
+                     "moe_expert_launches": experts}
         print(f"[{label}] {arch} float32 on the card: logits "
               f"max_abs_err {err:.3e} (tolerance {LM_GOLDEN_TOL}), K8 "
               f"{attn} per prefill and 0 per decode step, K7 "
@@ -2214,7 +2252,6 @@ def lm_decode_profile(model, params, prompts):
     LM_PROFILED_STEPS steps of a full pool of ``prompts`` (prefilled and
     stepped once untraced)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import Engine, Request, ServeConfig
     engine = Engine(model, params, ServeConfig(
@@ -2233,11 +2270,9 @@ def lm_decode_profile(model, params, prompts):
         torch.cuda.synchronize()
     traced_s = time.perf_counter() - t0
     by_name, n_device = {}, 0
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CPU and ev.device_time_total > 0:
-            by_name[ev.name] = by_name.get(ev.name, 0.0) \
-                + ev.device_time_total
-            n_device += 1
+    for ev in device_events(prof):
+        by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.device_time_total
+        n_device += 1
     if not by_name:
         print("[lm profile] the trace holds no device time: not measured")
         return None
@@ -2599,15 +2634,179 @@ def _expert_bound(e, cap, d, f, itemsize=4, rate=FP32_FLOPS_PER_S):
     return _lm_bound(nbytes, flops, rate) + (flops,)
 
 
+def _useful_expert_bound(fill, d, f, part="ffn", itemsize=4,
+                         rate=FP32_FLOPS_PER_S):
+    """(bound_ms, bound_by, flops) of a layer's expert products over the
+    filled rows alone: ``sum(fill)`` rows by each weight (2·d·f
+    multiply-adds a row each), against each weight of every expert that
+    holds a row read once and the filled rows read and written.  ``part``
+    is "ffn" (the three products: x in, y out), "gate_up" (W_gate and
+    W_up: x in, h out) or "down" (W_down: h in, y out)."""
+    weights, row_io = {"ffn": (3, 2 * d), "gate_up": (2, d + f),
+                       "down": (1, f + d)}[part]
+    used, rows = int((fill > 0).sum()), int(fill.sum())
+    flops = weights * 2 * rows * d * f
+    nbytes = itemsize * (weights * used * d * f + rows * row_io)
+    return _lm_bound(nbytes, flops, rate) + (flops,)
+
+
+def _unless_lost(res, key, bound_ms, label):
+    """Set the device time ``res[key]`` to None where it reads below
+    ``bound_ms``: less than the least time the card could take means the
+    trace lost events, so the reading is not a measurement (it is kept
+    under ``<key>_lost_events``)."""
+    if res[key] is not None and res[key] < bound_ms:
+        print(f"[{label}] {key} reads {res[key]} ms, below its bound "
+              f"{bound_ms} ms: the trace lost events, not measured")
+        res[f"{key}_lost_events"], res[key] = res[key], None
+
+
+def _filled_rows(fill, cap):
+    """(E, C, 1): whether each row of each expert's buffer holds a
+    token."""
+    import torch
+    return (torch.arange(cap, device=fill.device)[None, :]
+            < fill[:, None])[..., None]
+
+
+def _seeded_fill(e, k, n, cap, d, seed):
+    """Each expert's fill at a dispatch of ``n`` unit-normal tokens
+    through a unit-normal router / sqrt(d): the layer's own routing."""
+    import torch
+    from repro_torch.models import moe as moe_mod
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(n, d, generator=g, device="cuda")
+    router = torch.randn(d, e, generator=g, device="cuda") / d ** 0.5
+    _, _, ids = moe_mod._route(x, router, k)
+    return torch.clamp(moe_mod._expert_counts(ids.reshape(-1), e), max=cap)
+
+
+def moe_expert_kernels(smi):
+    """Phase 11, the expert kernels: ``moe_expert_gemm_gate_up`` and
+    ``_down`` against their plain version (``expert_ffn_bmm``, which
+    ``_expert_ffn`` runs where they do not) on the card on the filled
+    rows (rows past the fill pre-set to NaN in the buffer and the
+    hidden activations; MOE_KERNEL_TOL), at the benchmark cell's layer
+    (bucket 16), at the small bucket 1 and at a ragged shape (two row
+    tiles, widths not a multiple of the column slices), then timed at
+    both buckets against the three ``torch.bmm`` (``library_ms``; the
+    plain version is the same call), with the bound over the filled
+    rows; a device time below its bound is not measured
+    (``_unless_lost``).  Returns the numbers."""
+    import torch
+    from repro_torch.kernels import moe_expert_gemm as meg
+    from repro_torch.models import moe as moe_mod
+
+    def case(e, cap, d, f, fill, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        x = torch.randn(e, cap, d, generator=g, device="cuda")
+        ws = {"w_gate": torch.randn(e, d, f, generator=g, device="cuda")
+              / d ** 0.5,
+              "w_up": torch.randn(e, d, f, generator=g, device="cuda")
+              / d ** 0.5,
+              "w_down": torch.randn(e, f, d, generator=g, device="cuda")
+              / f ** 0.5}
+        empty = ~_filled_rows(fill, cap)
+        x.masked_fill_(empty, float("nan"))
+        return x, ws, empty
+
+    def check(label, x, ws, fill, empty):
+        hs = []
+        y_plain = meg.expert_ffn_bmm(x, ws["w_up"], ws["w_down"],
+                                     ws["w_gate"],
+                                     mid=lambda h: hs.append(h) or h)
+        h_plain = hs[0]
+        n0 = meg.moe_expert_ffn.launches
+        h = meg.moe_expert_gemm_gate_up(x, ws["w_gate"], ws["w_up"], fill)
+        y = meg.moe_expert_gemm_down(h_plain.masked_fill(empty, float("nan")),
+                                     ws["w_down"], fill)
+        y2 = meg.moe_expert_ffn(x, ws["w_gate"], ws["w_up"], ws["w_down"],
+                                fill)
+        torch.cuda.synchronize()
+        if meg.moe_expert_ffn.launches - n0 != 4:
+            raise AssertionError(f"moe expert kernels {label}: "
+                                 f"{meg.moe_expert_ffn.launches - n0} "
+                                 f"launches, not 4")
+        errs = {}
+        for name, got, want in (("gate_up", h, h_plain), ("down", y, y_plain),
+                                ("ffn", y2, y_plain)):
+            rows = ~empty.expand_as(got)
+            g_, w_ = got[rows], want[rows]
+            if not torch.isfinite(g_).all():
+                raise AssertionError(f"moe expert kernels {label} {name}: "
+                                     f"a filled row is not finite")
+            errs[name] = float((g_ - w_).abs().max()) if g_.numel() else 0.0
+            if not torch.allclose(g_, w_, **MOE_KERNEL_TOL):
+                raise AssertionError(f"moe expert kernels {label} {name}: "
+                                     f"max abs err {errs[name]}")
+        return errs
+
+    out = {"card": smi, "tol": MOE_KERNEL_TOL, "cases": []}
+    e, k, d, f = 128, 8, 2048, 768
+    for label, bucket, seed in (("bucket 16", 16, MOE_SEED),
+                                ("bucket 1", 1, MOE_SEED + 1)):
+        n = bucket * MOE_BLOCK_TOKENS
+        cap = moe_mod._capacity(MOE_CAPACITY_FACTOR, n, k, e)
+        fill = _seeded_fill(e, k, n, cap, d, seed)
+        x, ws, empty = case(e, cap, d, f, fill, seed)
+        errs = check(label, x, ws, fill, empty)
+        xz = torch.nan_to_num(x, nan=0.0)
+
+        def kernels():
+            return meg.moe_expert_ffn(xz, ws["w_gate"], ws["w_up"],
+                                      ws["w_down"], fill)
+
+        def bmm():
+            return meg.expert_ffn_bmm(xz, ws["w_up"], ws["w_down"],
+                                      ws["w_gate"])
+        b_ms, b_by, flops = _useful_expert_bound(fill, d, f)
+        res = {"label": label, "shape": [e, cap, d, f],
+               "filled_rows": int(fill.sum()),
+               "filled_share": float(fill.sum()) / (e * cap),
+               "max_fill": int(fill.max()), "max_abs_err": errs,
+               "ms": time_ms(kernels, 20),
+               "device_ms": device_ms(kernels, "moe_expert_gemm", iters=10),
+               "gate_up_device_ms": device_ms(
+                   kernels, "moe_expert_gemm_kernel<true>", iters=10),
+               "down_device_ms": device_ms(
+                   kernels, "moe_expert_gemm_kernel<false>", iters=10),
+               "library_ms": time_ms(bmm, 20),
+               "library_device_ms": device_ms(bmm, iters=10),
+               "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9}
+        tag = f"moe expert kernels {label}"
+        _unless_lost(res, "device_ms", b_ms, tag)
+        for part in ("gate_up", "down"):
+            _unless_lost(res, f"{part}_device_ms",
+                         _useful_expert_bound(fill, d, f, part)[0], tag)
+        _unless_lost(res, "library_device_ms",
+                     _expert_bound(e, cap, d, f)[0], tag)
+        if res["device_ms"]:
+            res["bound_share"] = b_ms / res["device_ms"]
+        out["cases"].append(res)
+        print(f"[moe expert kernels] {label}: {json.dumps(res)}")
+        del x, xz, ws
+        torch.cuda.empty_cache()
+    # two row tiles, ragged widths (masked columns and K), drops
+    e, cap, d, f = 6, 100, 132, 100
+    fill = torch.tensor([0, 1, 7, 8, 9, 130], device="cuda")
+    x, ws, empty = case(e, cap, d, f, fill, MOE_SEED + 2)
+    errs = check("ragged", x, ws, fill, empty)
+    out["cases"].append({"label": "ragged", "shape": [e, cap, d, f],
+                         "fill": fill.tolist(), "max_abs_err": errs})
+    print(f"[moe expert kernels] ragged {[e, cap, d, f]} fills "
+          f"{fill.tolist()}: max abs err {errs}")
+    return out
+
+
 def moe_full_width(entries, smi):
     """Phase 11, full width: the Qwen3-MoE-30B-A3B experts planned for
     ``v5e``, compiled at max_batch 16 on the card, against eager at every
     bucket, under sync-debug mode, then timed.  Returns the numbers."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
+    from repro_torch.kernels import moe_expert_gemm as meg
     from repro_torch.models import moe as moe_mod
     from repro_torch.runtime import (CompiledMoE, moe_plan_spec,
                                      moe_workload_from_config,
@@ -2686,11 +2885,9 @@ def moe_full_width(entries, smi):
             compiled(xd)
         torch.cuda.synchronize()
     by_name, n_ops = {}, 0
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CPU and ev.device_time_total > 0:
-            by_name[ev.name] = by_name.get(ev.name, 0.0) \
-                + ev.device_time_total
-            n_ops += 1
+    for ev in device_events(prof):
+        by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.device_time_total
+        n_ops += 1
     profile_res = None
     if by_name:
         busy = sum(by_name.values()) / 1e3 / MOE_PROFILED_STEPS
@@ -2707,36 +2904,11 @@ def moe_full_width(entries, smi):
         print("[moe full width] the trace holds no device time: not "
               "measured")
 
-    # the expert products of one layer at bucket 16, alone
+    # the layer's capacity at bucket 16 (phase 11's expert kernels time
+    # its products)
     m = pspec.layers[0]
     cap = moe_mod._capacity(m.capacity_factor, n_tok, m.top_k,
                             m.num_experts)
-    d, f = pspec.d_model, m.d_ff_expert
-    buf = torch.randn(m.num_experts, cap, d, device="cuda")
-    p0 = compiled.params[0]
-
-    def products():
-        h = torch.bmm(buf, p0["w_up"])
-        torch.bmm(buf, p0["w_gate"])
-        return torch.bmm(h, p0["w_down"])
-    bound_ms, bound_by, flops = _expert_bound(m.num_experts, cap, d, f)
-    bmm = {"shape": [m.num_experts, cap, d, f], "capacity": cap,
-           "ms": time_ms(products, 20), "device_ms": device_ms(products,
-                                                                iters=10),
-           "ffn_device_ms": device_ms(
-               lambda: moe_mod._expert_ffn(buf, p0, pspec.act), iters=10),
-           "bound_ms": bound_ms, "bound_by": bound_by,
-           "gflop": flops / 1e9}
-    if bmm["device_ms"] is not None and bmm["device_ms"] < bound_ms:
-        # less than the least time the card could take: the trace lost
-        # events, so the reading is not a measurement
-        print(f"[moe full width] the expert products' trace reads "
-              f"{bmm['device_ms']} ms, below their bound: not measured")
-        bmm["device_ms_lost_events"], bmm["device_ms"] = \
-            bmm["device_ms"], None
-    if bmm["device_ms"]:
-        bmm["tflop_per_s"] = flops / bmm["device_ms"] / 1e9
-    del buf
 
     # 256 blocks through the sync engine at max_batch 16
     engine = CNNEngine(serve_cfg=CNNServeConfig(max_batch=MOE_MAX_BATCH),
@@ -2753,7 +2925,22 @@ def moe_full_width(entries, smi):
         t0 = time.perf_counter()
         engine.run(reqs)
         return reqs, time.perf_counter() - t0
+    ffn = meg.moe_expert_ffn
+    counts0 = (ffn.launches, ffn.bmm_fallbacks,
+               sum(compiled.bucket_hits.values()))
     reqs, dt = drive(entries, "moe full width engine", set(), serve_blocks)
+    expert_calls = {"launches": ffn.launches - counts0[0],
+                    "bmm_fallbacks": ffn.bmm_fallbacks - counts0[1],
+                    "forwards": sum(compiled.bucket_hits.values())
+                    - counts0[2], "layers": compiled.num_layers}
+    if expert_calls["bmm_fallbacks"] or expert_calls["launches"] != \
+            2 * expert_calls["layers"] * expert_calls["forwards"]:
+        raise AssertionError(f"moe full width: the expert kernels did not "
+                             f"run twice a layer a forward: {expert_calls}")
+    print(f"[moe full width] expert products over {expert_calls['forwards']}"
+          f" forwards of {expert_calls['layers']} layers: "
+          f"moe_expert_ffn.launches {expert_calls['launches']}, "
+          f"bmm_fallbacks {expert_calls['bmm_fallbacks']}")
     outs = np.stack([r.output for r in reqs])
     if not (all(r.done for r in reqs) and np.isfinite(outs).all()):
         raise AssertionError("moe full width: a block was not served whole")
@@ -2766,7 +2953,7 @@ def moe_full_width(entries, smi):
            "dense_ref_rel_err": dense_rel, "sync_free_forward": True,
            "ms_per_step_bucket16": step_ms,
            "tokens_per_s_bare": n_tok / step_ms * 1e3,
-           "profile": profile_res, "expert_products": bmm,
+           "profile": profile_res, "expert_calls": expert_calls,
            "engine_blocks": MOE_TIMED_BLOCKS, "engine_s": dt,
            "engine_steps": engine.stats()["steps"] - steps0,
            "engine_tokens_per_s": MOE_TIMED_BLOCKS * compiled.in_shape[0]
@@ -2774,8 +2961,7 @@ def moe_full_width(entries, smi):
     print(f"[moe full width] bucket 16 ({n_tok} tokens, capacity {cap}): "
           f"{step_ms:.6f} ms per step (CUDA events), "
           f"{res['tokens_per_s_bare']:.1f} tokens/s; profile "
-          f"{json.dumps(profile_res)}; expert products of one layer "
-          f"{json.dumps(bmm)}; CNNEngine {MOE_TIMED_BLOCKS} blocks in "
+          f"{json.dumps(profile_res)}; CNNEngine {MOE_TIMED_BLOCKS} blocks in "
           f"{dt:.4f} s, {res['engine_tokens_per_s']:.1f} tokens/s; on {smi}")
     del engine, compiled
     torch.cuda.empty_cache()
@@ -2791,6 +2977,7 @@ def zoo_full_width(entries, smi):
     numbers."""
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels import moe_expert_gemm as meg
     from repro_torch.launch import serve
     from repro_torch.models import moe as moe_mod
 
@@ -2800,9 +2987,21 @@ def zoo_full_width(entries, smi):
         serve.serve_lm(cfg.with_overrides(n_layers=1),
                        requests=LM_MAX_BATCH, prompt_len=LM_PROMPT,
                        new_tokens=2, max_batch=LM_MAX_BATCH, device="cuda")
+    ffn = meg.moe_expert_ffn
+    counts0 = (ffn.launches, ffn.bmm_fallbacks)
     res, engine = serve_full_width(
         entries, cfg, f"lm zoo full width {ZOO_FULL_ARCH}", warm_up)
     res["card"] = smi
+    # the bf16 MoE MLP keeps torch.bmm: no expert kernel launches
+    res["expert_calls"] = {"launches": ffn.launches - counts0[0],
+                           "bmm_fallbacks": ffn.bmm_fallbacks - counts0[1]}
+    if res["expert_calls"]["launches"] or \
+            not res["expert_calls"]["bmm_fallbacks"]:
+        raise AssertionError(f"lm zoo full width: the bf16 MoE MLP left "
+                             f"torch.bmm: {res['expert_calls']}")
+    print(f"[lm zoo full width] {ZOO_FULL_ARCH} expert products: "
+          f"moe_expert_ffn.launches {res['expert_calls']['launches']}, "
+          f"bmm_fallbacks {res['expert_calls']['bmm_fallbacks']}")
     model, params = engine.model, engine.params
 
     # one decode step of the pool enqueues its work without a host sync
@@ -3111,7 +3310,6 @@ def _step_profile(step_fn, params, state, batch, kernel):
     of one training step, from a profiler trace.  Returns (the numbers or
     None where the trace holds no device time, params, state)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3121,11 +3319,9 @@ def _step_profile(step_fn, params, state, batch, kernel):
         torch.cuda.synchronize()
     traced_ms = (time.perf_counter() - t0) * 1e3
     by_name, n_device = {}, 0
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CPU and ev.device_time_total > 0:
-            by_name[ev.name] = by_name.get(ev.name, 0.0) \
-                + ev.device_time_total
-            n_device += 1
+    for ev in device_events(prof):
+        by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.device_time_total
+        n_device += 1
     if not by_name:
         print("[train profile] the trace holds no device time: not "
               "measured")
@@ -3889,6 +4085,7 @@ def main() -> int:
         lm = lm_full_width(entries)
         lm_cut = lm_plain_vs_kernel(entries)
         moe = {"golden": moe_golden_on_card(entries, smi),
+               "expert_kernels": moe_expert_kernels(smi),
                "full_width": moe_full_width(entries, smi)}
         zoo = lm_zoo(entries, smi)
         trained = train_phase(entries, smi)

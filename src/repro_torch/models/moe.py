@@ -4,9 +4,18 @@ Port of ``repro.models.moe`` for one device.  Dispatch never builds the
 O(tokens × experts × capacity) one-hot tensor: assignments are ranked
 inside their expert by one stable argsort and a per-expert count, then
 scattered into a dense (experts × capacity, d_model) buffer that feeds
-three batched expert products (``torch.bmm``).  Tokens beyond capacity
-are dropped (switch-style routing); the combine step re-weights by the
-router probability and sums the surviving top-k paths.
+the expert products.  Tokens beyond capacity are dropped (switch-style
+routing); the combine step re-weights by the router probability and sums
+the surviving top-k paths, reading only the buffer's filled rows.
+
+The products (``_expert_ffn``) adapt to what they are given.  On the
+flat path without a mesh, a gated SiLU FFN in float32 on the card off
+the autograd graph (the MoE serving workload, and an LM's MoE MLP at
+float32 in inference) runs ``kernels.moe_expert_gemm``: each expert's
+fill (its count clamped to the capacity, on the device) bounds the rows
+computed, two launches.  Every other call (the CPU, an LM's bf16 MoE
+MLP, training, the grouped path, DTensors) runs three batched products
+(``torch.bmm``) over every row.
 
 Parity with the reference, which runs this path in float32:
 
@@ -60,6 +69,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import moe_expert_gemm as meg
 from repro_torch.models.layers import _act, dense_init
 from repro_torch.ops import spans
 from repro_torch.parallel.sharding import (P, axis_sizes, mesh_of,
@@ -211,19 +221,28 @@ def _rank(flat_ids: torch.Tensor, counts: torch.Tensor, capacity: int,
 
 
 def _expert_ffn(expert_in: torch.Tensor, p, act: str,
-                hints: bool = False) -> torch.Tensor:
-    """The experts' FFN over their buffers (e, c, d) → (e, c, d): three
-    (two ungated) batched products (DTensor products under a mesh, the
-    hidden activations hinted to experts over ``model``), inside the
-    ``moe.experts`` span."""
+                hints: bool = False,
+                fill: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The experts' FFN over their buffers (e, c, d) → (e, c, d), inside
+    the ``moe.experts`` span.  Given each expert's ``fill`` (rows its
+    buffer holds, on the device), a call that
+    ``kernels.moe_expert_gemm.takes`` (on the card, float32, no
+    gradient, gated SiLU, no DTensor) computes only the filled rows
+    (``moe_expert_ffn``: two kernels), and the rows past the fill are
+    unspecified.
+    Every other call runs ``expert_ffn_bmm``: three (two ungated)
+    batched products over every row (DTensor products under a mesh, the
+    hidden activations hinted to experts over ``model``), counted in
+    ``moe_expert_ffn.bmm_fallbacks``."""
     with spans.span("moe.experts"):
-        h = torch.bmm(expert_in, p["w_up"])
-        if "w_gate" in p:
-            h = _act(torch.bmm(expert_in, p["w_gate"]), act) * h
-        else:
-            h = _act(h, act)
-        h = _hint(h, ("model", "data", None), hints)
-        return torch.bmm(h, p["w_down"])
+        if fill is not None and meg.takes(expert_in, p, act):
+            return meg.moe_expert_ffn(expert_in, p["w_gate"], p["w_up"],
+                                      p["w_down"], fill)
+        meg.moe_expert_ffn.bmm_fallbacks += 1
+        return meg.expert_ffn_bmm(
+            expert_in, p["w_up"], p["w_down"], p.get("w_gate"),
+            act=lambda t: _act(t, act),
+            mid=lambda h: _hint(h, ("model", "data", None), hints))
 
 
 def _shared(p, xf: torch.Tensor, act: str) -> torch.Tensor:
@@ -264,7 +283,9 @@ def _moe_layer_flat(p, x: torch.Tensor, cfg):
         buf = xf_.new_zeros((e * capacity + 1, d))
         buf.index_copy_(0, slot, x_rep)    # dropped → the sentinel row
         aux = _aux_loss(probs, counts, n, e, m.router_aux_weight)
-        return buf[:-1].reshape(e, capacity, d), slot, keep, top_vals, aux
+        fill = torch.clamp(counts, max=capacity)     # rows each buffer holds
+        return (buf[:-1].reshape(e, capacity, d), slot, keep, top_vals, aux,
+                fill)
 
     def combine(expert_out, slot, keep, top_vals):
         # ---- combine: gather surviving assignments back ---------------
@@ -277,13 +298,22 @@ def _moe_layer_flat(p, x: torch.Tensor, cfg):
 
     if mesh is not None:
         # routing, ranking and the scatter/gather pair have no DTensor
-        # sharding rule: each device runs them on the whole batch
-        route_dispatch = _replicated(route_dispatch, mesh, 2, 5)
+        # sharding rule: each device runs them on the whole batch; the
+        # products take every row (no fill)
+        replicated = _replicated(
+            lambda xf_, router: route_dispatch(xf_, router)[:5], mesh, 2, 5)
         combine = _replicated(combine, mesh, 4, 1)
-    expert_in, slot, keep, top_vals, aux = route_dispatch(xf, p["router"])
+        expert_in, slot, keep, top_vals, aux = replicated(xf, p["router"])
+        fill = None
+    else:
+        expert_in, slot, keep, top_vals, aux, fill = route_dispatch(
+            xf, p["router"])
     expert_in = _hint(expert_in, ("model", "data", None), hints)
-    expert_out = _hint(_expert_ffn(expert_in, p, cfg.act, hints),
+    expert_out = _hint(_expert_ffn(expert_in, p, cfg.act, hints, fill),
                        ("model", "data", None), hints)
+    # free the buffers before the combine, whose gathers set the layer's
+    # peak memory
+    del expert_in, fill
     out = _hint(combine(expert_out, slot, keep, top_vals), ("data", None),
                 hints)
 

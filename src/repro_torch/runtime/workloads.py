@@ -46,6 +46,7 @@ from repro_torch.core.deploy import (DEFAULT_BIT_CANDIDATES, RATE_RESOURCES,
                                      LayerAssignment, _as_device,
                                      device_profile)
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import build
 from repro_torch.models import moe as moe_mod
 from repro_torch.runtime.compiled import CompiledModel, ExecutableCache
 
@@ -348,9 +349,12 @@ class CompiledMoE(CompiledModel):
     A (layer, bucket) preparation is a closure over the layer's
     configuration that checks its input's shape: the capacity depends
     on the bucket, as each (layer, bucket) is its own executable in the
-    reference.  It launches no kernel of the port's (the path is torch
-    ops), so ``ops.PersistentExecutableCache`` keeps it in memory only
-    and a restart prepares it again, which builds nothing."""
+    reference.  On the card its expert products launch the port's
+    ``moe_expert_gemm`` kernels (the rest is torch ops); the warm-up
+    builds (if missing) and binds their library in the cache's kernel
+    directory, so no dispatch compiles.  ``ops.PersistentExecutableCache``
+    keeps the closures in memory only, and a restart prepares them
+    again, which builds nothing the kernel directory holds."""
 
     kind = "moe"
     input_noun = "token block"
@@ -392,6 +396,15 @@ class CompiledMoE(CompiledModel):
             params = spec.init_params(generator)
         return cls(spec, params, max_batch=max_batch, device=device,
                    warmup=warmup, exec_cache=exec_cache)
+
+    def warmup(self) -> "CompiledMoE":
+        """Prepare every (layer, bucket) closure; on the card first build
+        (if missing) and bind the expert kernels' library, which every
+        layer's products launch (a gated SiLU FFN in float32)."""
+        if self.device.type == "cuda" and self.spec.mlp_gated \
+                and self.spec.act == "silu":
+            build.prepare(("moe_expert_gemm",), self.cache.kernel_dir)
+        return super().warmup()
 
     # -- backend hooks ----------------------------------------------------
     def _layer_key(self, i: int, bucket: int) -> tuple:

@@ -8,8 +8,9 @@ serving path (K1–K3), the per-plane path (``ConvBlock.apply``,
 ``cnn_forward_loop``, ``validate_plan``: K3–K6), the LM path (K7,
 K8: ``prefill``, ``decode_step`` and the ``Engine``; the whole zoo at
 smoke size, and Qwen3-MoE at full width cut to 4 layers), the quantized MoE
-workload (no kernel of its own: layer by layer against the golden, the
-bucketed forward against eager, no host sync), and the persistent
+workload (layer by layer against the golden, the bucketed forward
+against eager, no host sync; its expert kernels against their plain
+versions), and the persistent
 cache's kernel libraries (a corrupt one quarantined and rebuilt; a warm
 start in a fresh process that builds nothing), and training (the
 gradients through K7's and K8's ``torch.autograd.Function``s against the
@@ -740,7 +741,10 @@ def test_lm_on_card_matches_golden(cuda, arch):
     counted in the decode positions), greedy tokens equal where the file
     holds them (for the MoE archs two identical prompts in one wave); K8
     once per attention layer per prefill and never in decode, K7 three
-    times per Mamba layer per call."""
+    times per Mamba layer per call; the expert kernels twice per MoE
+    layer per call (a float32 gated SiLU MoE MLP in inference), never
+    without one."""
+    from repro_torch.kernels import moe_expert_gemm as meg
     cfg = smoke_config(arch).with_overrides(dtype="float32")
     with np.load(LM_GOLDEN_ARCHS[arch]) as z:
         g = {k: z[k] for k in z.files if k.startswith(arch + "/")}
@@ -754,9 +758,12 @@ def test_lm_on_card_matches_golden(cuda, arch):
     attn = sum(s.mixer == "attn" for s in cfg.layer_cycle) * cfg.n_cycles
     mamba = sum(s.mixer == "mamba" for s in cfg.layer_cycle) * cfg.n_cycles
     k7, k8 = conv1d.causal_conv1d.launches, fa.flash_attention.launches
+    experts = meg.moe_expert_ffn.launches
     logits, _ = model.prefill(params, batch)
     assert fa.flash_attention.launches - k8 == attn
     assert conv1d.causal_conv1d.launches - k7 == 3 * mamba
+    assert (meg.moe_expert_ffn.launches - experts > 0) \
+        == (cfg.moe is not None)
     np.testing.assert_allclose(logits.cpu().numpy(),
                                g[f"{arch}/prefill_logits"], rtol=2e-3,
                                atol=2e-3)
@@ -839,6 +846,42 @@ def test_moe_on_card_matches_golden_and_syncs_nothing(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("e,cap,d,f,fill", [
+    (8, 64, 256, 128, [0, 1, 7, 8, 9, 33, 64, 64]),
+    (6, 100, 132, 100, [0, 1, 7, 8, 9, 130]),
+])
+def test_moe_expert_gemm_matches_plain_on_card(cuda, e, cap, d, f, fill):
+    """The two expert kernels against their plain version
+    (``expert_ffn_bmm``, and its hidden activation) on the card on every
+    filled row (rtol = atol = 1e-4: float32 sums in another order), with
+    every row past the fill NaN in their inputs; two launches a call.
+    The second shape has two row tiles, widths that are no multiple of
+    the column slices, and a fill past the capacity."""
+    from repro_torch.kernels import moe_expert_gemm as meg
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(e, cap, d, generator=g, device="cuda")
+    wg, wu = (torch.randn(e, d, f, generator=g, device="cuda") / d ** 0.5
+              for _ in range(2))
+    wd = torch.randn(e, f, d, generator=g, device="cuda") / f ** 0.5
+    fill = torch.tensor(fill, device="cuda")
+    empty = ~(torch.arange(cap, device="cuda")[None, :]
+              < fill[:, None])[..., None]
+    x.masked_fill_(empty, float("nan"))
+    hs = []
+    y_want = meg.expert_ffn_bmm(x, wu, wd, wg,
+                                mid=lambda h: hs.append(h) or h)
+    h_want = hs[0]
+    before = meg.moe_expert_ffn.launches
+    h = meg.moe_expert_gemm_gate_up(x, wg, wu, fill)
+    y = meg.moe_expert_ffn(x, wg, wu, wd, fill)
+    torch.cuda.synchronize()
+    assert meg.moe_expert_ffn.launches - before == 3
+    for got, want in ((h, h_want), (y, y_want)):
+        rows = ~empty.expand_as(got)
+        torch.testing.assert_close(got[rows], want[rows], rtol=1e-4,
+                                   atol=1e-4)
 
 
 # ---------------------------------------------------------------------------
