@@ -5,18 +5,23 @@ metrics; everything else lives under ``portbench/`` in a file named after
 what it holds:
 
 ``cells/<cell>.json``         the cell: its configuration, its traffic and
-                              that traffic's parameters, the gateway's
+                              that traffic's parameters, its server's
                               settings, the sample the output check takes
-``configs/<config>.json``     the configuration (and the frozen plan it
+``configs/<config>.json``     the configuration (and any frozen plan it
                               names beside it)
 ``kinds/<kind>.py``           how a configuration's workload kind is drawn
                               from the seed and checked against its plain
-                              reference
+                              reference, and which server serves it
+                              (``SERVER``)
+``servers/<server>.py``       how the port is set up, warmed, driven and
+                              released for a kind: ``gateway`` (a frozen
+                              plan through the async gateway), ``engine``
+                              (an LM through ``serve.engine.Engine``)
 ``traffic/<kind>.py``         one traffic kind's seeded generator
 ``metrics/<metric>.py``       one metric's reader
 
-A new cell, configuration, traffic kind or metric is a new file and a new
-entry in ``BENCHMARK.json``: nothing here lists them.
+A new cell, configuration, kind, server, traffic kind or metric is a new
+file and a new entry in ``BENCHMARK.json``: nothing here lists them.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import re
+import sys
 from pathlib import Path
 from types import ModuleType
 from typing import Dict, List
@@ -70,6 +76,9 @@ def module(kind: str, name: str, root: Path = ROOT) -> ModuleType:
     spec = importlib.util.spec_from_file_location(
         f"portbench_{kind}_{re.sub(r'[^A-Za-z0-9_]', '_', name)}", path)
     mod = importlib.util.module_from_spec(spec)
+    # registered before it runs, as an import would be: a dataclass
+    # defined in it looks its module up there
+    sys.modules[spec.name] = mod
     spec.loader.exec_module(mod)
     return mod
 

@@ -1,18 +1,28 @@
 """One run of one cell: set up, measure for a fixed window, check.
 
-The system under test is the port's ``serve.async_engine.AsyncCNNGateway``
-with the cell's frozen plan registered, handed weights the benchmark drew
-from the seed.  A traffic module (``traffic/<kind>.py``) drives it through
-``submit_nowait``, the entry users call, while a ``Recorder`` stamps every
-request: when it was handed over, when its answer came back and what the
-answer was.  After the window every request still owed
-an answer is waited for (a minute at most), the device's peak memory is
-read, the program's state is freed, and the kind's plain reference
-recomputes a seeded sample of the answers.
+A run is split between what every cell shares, here, and a server, which
+belongs to the configuration's kind (``kinds/<kind>.py`` names it in
+``SERVER``; ``servers/<server>.py`` holds it).  The server sets the port
+up from the kind's ``System`` (weights and payloads the benchmark drew
+from the seed) and the cell's own settings block, warms every shape the
+cell's traffic uses, and hands out a ``Recorder`` through which a traffic
+module (``traffic/<kind>.py``) drives it: ``submit()`` hands the next
+request to the program, and the recorder stamps when it was handed over,
+when its answer came back, what the answer was and, as ``emit``, each
+unit of work (an image, a token) when the program produced it.
 
-With ``trace`` the last ``TRACE_SLICE_S`` seconds of the window run under
-``torch.profiler``; per-layer metrics read the device there and the host
-before it.
+Here: TF32 off; ``setup_s`` from the process's start to the window's
+start; the window itself; with ``trace`` the last ``TRACE_SLICE_S``
+seconds of it under ``torch.profiler``; after it every request still
+owed an answer waited for (a minute at most), the device's peak memory
+read and the program released; then the server hands a seeded sample of
+the recorded answers to the kind's plain reference.  Per-layer metrics
+read the device in the traced slice and the host before it.
+
+A server module holds ``Server(system, cell, seed, device, config_dir)``
+with ``profiler_warmup()``, ``async warm()``, ``recorder(order, keep)``,
+``async close(rec)``, ``data(rec, **common) -> RunData``, ``release()``
+and ``check(rec, data, rng, control=False)``.
 """
 
 from __future__ import annotations
@@ -45,37 +55,24 @@ def import_port():
         sys.path.insert(0, str(SRC))
 
 
-class StampedLog(list):
-    """``AsyncCNNGateway.stage_log`` that also notes when each dispatch
-    completed, on the recorder's clock."""
-
-    def __init__(self, clock: Callable[[], float]):
-        super().__init__()
-        self.clock = clock
-        self.stamps: List[float] = []
-
-    def append(self, item) -> None:
-        self.stamps.append(self.clock())
-        super().append(item)
-
-
 class Recorder:
-    """Hands payloads to the gateway and stamps each request.  Every time
-    is in seconds from the window's start on ``time.perf_counter``."""
+    """Hands requests to the program and stamps each.  Every time is in
+    seconds from the window's start on ``time.perf_counter``.  A server's
+    recorder implements ``hand_over(i)``: the future of request ``i``'s
+    answer, or None when the program refused it at the door."""
 
-    def __init__(self, gw, plan_id: str, pool: np.ndarray,
-                 order: np.ndarray, keep: Callable[[int], bool]):
-        from repro_torch.serve.async_engine import GatewayBacklog
-        self.gw, self.plan_id, self.pool = gw, plan_id, pool
-        self.order, self.keep = order, keep
-        self.backlog = GatewayBacklog
+    def __init__(self, pool, order: np.ndarray,
+                 keep: Callable[[int], bool]):
+        self.pool, self.order, self.keep = pool, order, keep
         self.t0 = time.perf_counter()
         self.sent: List[float] = []
         self.done: List[float] = []
         self.status: List[str] = []
         self.admitted: List[int] = []      # request indices, in admission
-        self.answers: Dict[int, np.ndarray] = {}
+        self.answers: Dict[int, object] = {}
         self.pending: set = set()
+        #: (time, units) of the work the program produced, as produced
+        self.emitted: List[Tuple[float, int]] = []
 
     def now(self) -> float:
         return time.perf_counter() - self.t0
@@ -83,23 +80,28 @@ class Recorder:
     def payload_index(self, i: int) -> int:
         return int(self.order[i % len(self.order)])
 
+    def hand_over(self, i: int):
+        raise NotImplementedError
+
     def submit(self):
-        """Submit the next request; its future, or None when the gateway
+        """Submit the next request; its future, or None when the program
         refused it at the door."""
         i = len(self.sent)
         self.sent.append(self.now())
         self.done.append(float("nan"))
         self.status.append("pending")
-        try:
-            fut = self.gw.submit_nowait(self.pool[self.payload_index(i)],
-                                        plan_id=self.plan_id)
-        except self.backlog:
+        fut = self.hand_over(i)
+        if fut is None:
             self.status[i] = "shed"
             return None
         self.admitted.append(i)
         self.pending.add(fut)
         fut.add_done_callback(functools.partial(self._finished, i))
         return fut
+
+    def emit(self, units: int, at: float) -> None:
+        """``units`` of work produced at ``at``.  Safe from any thread."""
+        self.emitted.append((at, units))
 
     def _finished(self, i: int, fut) -> None:
         self.done[i] = self.now()
@@ -114,10 +116,13 @@ class Recorder:
                 self.answers[i] = fut.result()
 
 
-@dataclass
+@dataclass(kw_only=True)
 class RunData:
     """What a run recorded, as metric readers see it.  Times are seconds
-    from the window's start; ``traced`` is the profiled slice, or None."""
+    from the window's start; ``emitted_t`` and ``emitted_units`` are the
+    work the program produced and when; ``ops_per_unit`` the operations a
+    unit needs (the yardstick's count); ``traced`` is the profiled slice,
+    or None.  A server's subclass adds what only it records."""
     cell: Dict
     config: Dict
     seconds: float
@@ -125,11 +130,9 @@ class RunData:
     sent: np.ndarray
     done: np.ndarray
     status: np.ndarray
-    stages: List[Tuple[float, object]]
-    units_per_request: int
-    ops_per_request: float
-    request_bytes: int
-    max_batch: int
+    emitted_t: np.ndarray
+    emitted_units: np.ndarray
+    ops_per_unit: float
     traced: Optional[Tuple[float, float]] = None
     events: list = field(default_factory=list)
 
@@ -141,6 +144,10 @@ class RunData:
     def completed(self, end: float) -> np.ndarray:
         """Mask of requests answered within [0, end)."""
         return (self.status == "done") & (self.done < end)
+
+    def units_before(self, end: float) -> int:
+        """Units the program produced within [0, end)."""
+        return int(np.sum(self.emitted_units[self.emitted_t < end]))
 
 
 @dataclass
@@ -171,33 +178,15 @@ def _keep_fn(check: Dict, seed: int) -> Callable[[int], bool]:
     return lambda i: (i // run) % every == off
 
 
-def _dispatches(data: RunData, admitted: List[int]) -> List[List[int]]:
-    """The requests each dispatch served.  The cell's policy serves the
-    queue in admission order and one dispatch is in flight at a time, so
-    dispatch k holds the next ``n`` admitted requests; a log whose sizes
-    do not add up to the answered requests gives nothing."""
-    sizes = [st.n for _, st in data.stages]
-    answered = [i for i in admitted if data.status[i] == "done"]
-    if sum(sizes) != len(answered):
-        return []
-    out, k = [], 0
-    for n in sizes:
-        out.append(answered[k:k + n])
-        k += n
-    return out
-
-
 class Bench:
-    """A cell set up once: ``warm``, then ``window``, then, once the
-    program's state is released, ``check``."""
+    """A cell set up once: its server's ``warm``, then ``window``, then,
+    once the program's state is released, ``check``.  ``server`` is the
+    kind's server over the kind's ``system``."""
 
     def __init__(self, cell_name: str, seed: int, *, device: str = "cuda",
                  root: Path = catalog.ROOT):
         import_port()
         import torch
-        from repro_torch.runtime import load_plan
-        from repro_torch.serve.async_engine import (AsyncCNNGateway,
-                                                    AsyncServeConfig)
         self.seed = seed
         self.torch = torch
         self.device = torch.device(device)
@@ -209,60 +198,24 @@ class Bench:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         torch.set_float32_matmul_precision("highest")
-        self.system = kind.System(self.config, seed, self.device,
-                                  catalog.config_dir(root))
-        gcfg = self.cell["gateway"]
-        self.gw = AsyncCNNGateway(AsyncServeConfig(
-            max_batch=gcfg["max_batch"], max_pending=gcfg["max_pending"],
-            max_inflight=gcfg["max_inflight"], policy=gcfg["policy"],
-            wait_budget_s=gcfg["wait_budget_s"],
-            batch_linger=gcfg["batch_linger"]))
-        self.plan_id = self.cell["config"]
-        self.gw.register_plan(
-            load_plan(catalog.config_dir(root) / self.config["plan"]),
-            plan_id=self.plan_id, params=self.system.params(),
-            device=self.device)
-        compiled = self.gw.plans[self.plan_id].compiled
-        if list(compiled.buckets) != list(self.config["buckets"]):
-            raise ValueError(f"the program serves buckets {compiled.buckets}"
-                             f", the configuration states "
-                             f"{self.config['buckets']}")
-        # every bucket once through the program's entry, so that no first
-        # call (kernel binding, cuBLAS heuristics) falls in the window
-        for b in compiled.buckets:
-            compiled(self.system.pool[:b])
-        self._sync()
-
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            self.torch.cuda.synchronize(self.device)
-
-    async def warm(self) -> None:
-        """Two full dispatches and a single request through the gateway:
-        its event loop, worker thread and futures, before any window."""
-        order = np.arange(len(self.system.pool))
-        rec = Recorder(self.gw, self.plan_id, self.system.pool, order,
-                       lambda i: False)
-        n = 2 * self.cell["gateway"]["max_batch"] + 1
-        futs = [rec.submit() for _ in range(n)]
-        await asyncio.wait([f for f in futs if f is not None])
+        config_dir = catalog.config_dir(root)
+        self.system = kind.System(self.config, seed, self.device, config_dir)
+        self.server = catalog.module("servers", kind.SERVER, root).Server(
+            self.system, self.cell, seed, self.device, config_dir)
 
     async def window(self, seconds: float, *, trace: bool = False
                      ) -> Tuple[Recorder, Optional[Dict]]:
         """Drive the cell's traffic for ``seconds``, then wait for every
-        answer still owed.  Returns the recorder and, traced, the
-        profiler's slice."""
+        answer still owed and close the server.  Returns the recorder
+        and, traced, the profiler's slice."""
         params = self.cell["traffic"]
         plan = self.traffic.plan(params, self.seed, seconds,
                                  len(self.system.pool))
-        self.gw.stage_log = None
         gc.collect()
         if self.device.type == "cuda":
             self.torch.cuda.reset_peak_memory_stats(self.device)
-        rec = Recorder(self.gw, self.plan_id, self.system.pool,
-                       plan["order"], _keep_fn(self.cell["check"],
-                                               self.seed))
-        self.gw.stage_log = StampedLog(rec.now)
+        rec = self.server.recorder(plan["order"],
+                                   _keep_fn(self.cell["check"], self.seed))
         profiled = None
         prof_task = None
         if trace:
@@ -273,7 +226,7 @@ class Bench:
             profiled = await prof_task
         if rec.pending:
             await asyncio.wait(set(rec.pending), timeout=SETTLE_S)
-        rec.gw = None                  # the gateway is freed by release()
+        await self.server.close(rec)
         return rec, profiled
 
     async def _profile(self, rec: Recorder, seconds: float) -> Dict:
@@ -296,48 +249,30 @@ class Bench:
             os.remove(path)
         return {"slice": (t_on, t_off), "events": events}
 
-    def profiler_warmup(self) -> None:
-        """One profiled forward, so that the profiler's own start-up
-        (CUPTI) is set-up and not part of the traced slice."""
-        from torch.profiler import ProfilerActivity, profile
-        compiled = self.gw.plans[self.plan_id].compiled
-        with profile(activities=[ProfilerActivity.CUDA]):
-            compiled(self.system.pool[:1])
-            self._sync()
-
     def data(self, rec: Recorder, seconds: float, setup_s: float,
              profiled: Optional[Dict]) -> RunData:
-        log = self.gw.stage_log or []
-        return RunData(
-            cell=self.cell, config=self.config, seconds=seconds,
+        emitted = np.asarray(rec.emitted, dtype=np.float64).reshape(-1, 2)
+        return self.server.data(
+            rec, cell=self.cell, config=self.config, seconds=seconds,
             setup_s=setup_s, sent=np.asarray(rec.sent, dtype=np.float64),
             done=np.asarray(rec.done, dtype=np.float64),
-            status=np.asarray(rec.status),
-            stages=list(zip(getattr(log, "stamps", []), log)),
-            units_per_request=self.system.units_per_request,
-            ops_per_request=self.system.ops_per_request,
-            request_bytes=self.system.request_bytes,
-            max_batch=self.cell["gateway"]["max_batch"],
+            status=np.asarray(rec.status), emitted_t=emitted[:, 0],
+            emitted_units=emitted[:, 1].astype(np.int64),
             traced=profiled["slice"] if profiled else None,
             events=profiled["events"] if profiled else [])
 
     def release(self) -> None:
-        """Free the program's state: the gateway, its compiled plan and
-        the weights it was handed."""
-        self.gw = None
+        """Free the program's state."""
+        self.server.release()
         gc.collect()
         if self.device.type == "cuda":
             self.torch.cuda.empty_cache()
 
     def check(self, rec: Recorder, data: RunData, *,
               control: bool = False) -> Dict[str, float]:
-        chk = self.cell["check"]
         rng = np.random.default_rng([self.seed, 3])
-        payload = [rec.payload_index(i) for i in range(len(rec.sent))]
         with self.torch.no_grad():
-            out = self.system.check(rec.answers, payload,
-                                    _dispatches(data, rec.admitted), rng,
-                                    chk["compare"], control=control)
+            out = self.server.check(rec, data, rng, control=control)
         out["lost"] = int(np.sum(data.status == "pending"))
         return out
 
@@ -352,13 +287,12 @@ def run_cell(cell_name: str, seed: int, seconds: float, *,
     started = time.perf_counter() if started is None else started
     bench = Bench(cell_name, seed, device=device, root=root)
     if trace:
-        bench.profiler_warmup()
+        bench.server.profiler_warmup()
 
     async def main():
-        await bench.warm()
+        await bench.server.warm()
         setup_s = time.perf_counter() - started
         rec, profiled = await bench.window(seconds, trace=trace)
-        await bench.gw.close()
         return rec, setup_s, profiled
 
     rec, setup_s, profiled = asyncio.run(main())

@@ -20,6 +20,8 @@ from portbench.reference import cnn as ref
 from portbench.yardstick import work
 
 UNIT = "images"
+#: the server that serves this kind (``servers/gateway.py``)
+SERVER = "gateway"
 #: the control computes every operand with its top 4 bits: int4 for the
 #: int8 containers the configuration states
 CONTROL_BITS = 4

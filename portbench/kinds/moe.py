@@ -27,6 +27,8 @@ from portbench.reference import moe as ref
 from portbench.yardstick import work
 
 UNIT = "tokens"
+#: the server that serves this kind (``servers/gateway.py``)
+SERVER = "gateway"
 #: a token whose error reaches this share of the median token's layer
 #: output is counted as wrong
 BAD_TOKEN = 1e-2

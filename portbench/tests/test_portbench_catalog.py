@@ -51,8 +51,11 @@ def test_cells_name_known_files(w):
     cell = catalog.cell(w["name"])
     assert cell["name"] == w["name"] and cell["config"] == w["config"]
     config = catalog.config(cell["config"])
-    assert (catalog.config_dir() / config["plan"]).is_file()
-    assert callable(catalog.module("kinds", config["kind"]).System)
+    if "plan" in config:
+        assert (catalog.config_dir() / config["plan"]).is_file()
+    kind = catalog.module("kinds", config["kind"])
+    assert callable(kind.System)
+    assert callable(catalog.module("servers", kind.SERVER).Server)
     traffic = catalog.module("traffic", cell["traffic"]["kind"])
     assert callable(traffic.plan) and callable(traffic.drive)
     assert w["traffic"].startswith(cell["traffic"]["kind"])

@@ -1,6 +1,7 @@
 """Whole runs of the harness on the CPU at test sizes (``tiny.py``): every
-cell proves correct, a broken timed path does not, a cell and a metric
-added as files alone are found by name, and nothing loads JAX."""
+cell proves correct, a broken timed path does not, a gateway run counts
+its work as its answered requests' units, a cell and a metric added as
+files alone are found by name, and nothing loads JAX."""
 
 import json
 import os
@@ -13,6 +14,7 @@ import torch
 
 from portbench import catalog, harness
 from portbench.tests.tiny import make_root
+from portbench.yardstick import peaks, readings
 
 harness.import_port()
 
@@ -21,6 +23,10 @@ SEED = 2 ** 31 + 977
 #: them
 CELLS = sorted(p.stem for p in (catalog.ROOT / "portbench" / "cells")
                .glob("*.json"))
+#: the cells whose kind the gateway serves
+GATEWAY_CELLS = [c for c in CELLS if catalog.module(
+    "kinds", catalog.config(catalog.cell(c)["config"])["kind"]).SERVER
+    == "gateway"]
 #: the metrics of the unlisted CNN cell, whose readers are kept with it
 UNLISTED = {"cnn-closed64": ["images_per_s", "gateway_overhead_ms.cnn",
                              "forward_ms.cnn", "k1_roofline", "mfu.cnn",
@@ -46,9 +52,12 @@ def test_cell_runs_correct_on_the_cpu(root, cell):
         n for trace in (False, True)
         for n in catalog.metrics_for(bench, cell, trace)]
     assert "setup_s" in names and len(names) > 1
+    device_trace = {m["name"] for m in bench["per_layer"]
+                    if m["source"] == "device_trace"}
     for name in names:
         value = catalog.module("metrics", name, root).read(out.data)
-        if name.startswith(("k1_", "expert_", "idle_")):
+        if name.startswith(("k1_", "expert_", "idle_")) \
+                or name in device_trace:
             assert value is None            # no device trace on the CPU
         else:
             assert value is not None and np.isfinite(value) \
@@ -121,7 +130,7 @@ def _served_checks(bench, lead: int) -> dict:
     dispatches = [list(range(a, min(a + full if a else lead, n)))
                   for a in starts]
     keep = harness._keep_fn(chk, seed)
-    compiled = bench.gw.plans[bench.plan_id].compiled
+    compiled = bench.server.gw.plans[bench.server.plan_id].compiled
     answers = {}
     for d in dispatches:
         if any(keep(i) for i in d):
@@ -135,7 +144,7 @@ def _served_checks(bench, lead: int) -> dict:
 
 
 @pytest.mark.parametrize("seed", [SEED, 5, 2 ** 31 + 60_013])
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", GATEWAY_CELLS)
 def test_half_batch_left_out_fails_the_cells_own_check(own_root, monkeypatch,
                                                        cell, seed):
     """Half of every batch left out, under the cell's own sample of kept
@@ -154,6 +163,28 @@ def test_half_batch_left_out_fails_the_cells_own_check(own_root, monkeypatch,
             _drop_half(m)
             checks = _served_checks(bench, lead)
             assert checks["compared"] > 0 and not correct(checks), checks
+
+
+@pytest.mark.parametrize("cell", GATEWAY_CELLS)
+def test_gateway_rate_and_mfu_count_answered_requests(root, cell):
+    """A gateway run's rate and MFU, from the work it emitted, equal the
+    arithmetic over answered requests that they replace, bit for bit:
+    answered requests times the units a request carries over the
+    window, and that rate before the traced slice times a request's
+    operations over its units."""
+    out = _run(root, cell)
+    data = out.data
+    system = catalog.module("kinds", data.config["kind"], root).System(
+        data.config, SEED, torch.device("cpu"), catalog.config_dir(root))
+    units, ops = system.units_per_request, system.ops_per_request
+    for end in (data.seconds, 0.5):
+        n = int(np.sum(data.completed(end)))
+        assert n > 0
+        assert readings.rate_per_s(data, end) == n * units / end
+    rate = int(np.sum(data.completed(data.host_end))) * units \
+        / data.host_end
+    old = 100.0 * rate / units * ops / peaks.FP32_FLOPS_PER_S
+    assert readings.mfu_pct(data, peaks.FP32_FLOPS_PER_S) == old
 
 
 def test_cell_and_metric_added_as_files_are_found(root, tmp_path):
@@ -200,10 +231,10 @@ def test_cell_and_metric_added_as_files_are_found(root, tmp_path):
 
 
 def test_no_jax_is_imported():
-    """The runner, every configuration's kind, traffic kind, metric
-    reader and reference, imported in a fresh process, load neither JAX
-    nor the JAX package (top-level names compared whole: ``repro_torch``
-    is the port)."""
+    """The runner, every configuration's kind, every server, traffic
+    kind, metric reader and reference, imported in a fresh process, load
+    neither JAX nor the JAX package (top-level names compared whole:
+    ``repro_torch`` is the port)."""
     code = (
         "import sys; sys.path.insert(0, 'portbench')\n"
         "import run\n"
@@ -218,7 +249,10 @@ def test_no_jax_is_imported():
         "    c = catalog.cell(w['name'])\n"
         "    catalog.module('traffic', c['traffic']['kind'])\n"
         "    catalog.module('kinds', catalog.config(c['config'])['kind'])\n"
+        "for p in (catalog.ROOT / 'portbench' / 'servers').glob('*.py'):\n"
+        "    catalog.module('servers', p.stem)\n"
         "import repro_torch.serve.async_engine, repro_torch.models.moe\n"
+        "import repro_torch.serve.engine\n"
         "print(sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in run.FORBIDDEN))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -5,11 +5,12 @@ import numpy as np
 import pytest
 
 from portbench import catalog
-from portbench.harness import RunData
 from portbench.yardstick import readings, trace, work
 
 CNN = catalog.config("quickstart-cnn")
 MOE = catalog.config("qwen3-moe-30b-a3b-experts")
+#: a gateway run's record
+RunData = catalog.module("servers", "gateway").RunData
 
 
 def test_cnn_ops_per_image():
@@ -41,12 +42,21 @@ def test_k1_launch_bytes_and_bound(i, nbytes, bound_ms):
         bound_ms, rel=1e-3)
 
 
+def _emitted(status, done, units: int) -> dict:
+    """What a gateway run emits: each answered request's units at its
+    answer's time."""
+    ok = np.asarray(status) == "done"
+    return {"emitted_t": np.asarray(done, float)[ok],
+            "emitted_units": np.full(int(ok.sum()), units)}
+
+
 def _run(status, sent, done, **kw) -> RunData:
     return RunData(cell={}, config=CNN, seconds=10.0, setup_s=1.0,
                    sent=np.asarray(sent, float),
                    done=np.asarray(done, float), status=np.asarray(status),
+                   **_emitted(status, done, 1),
                    stages=kw.pop("stages", []), units_per_request=1,
-                   ops_per_request=7_667_712, request_bytes=4096,
+                   ops_per_unit=7_667_712, request_bytes=4096,
                    max_batch=16, **kw)
 
 
@@ -127,8 +137,9 @@ def test_expert_gemm_roofline_skips_a_dispatch_with_lost_events():
     evs.append(_ev("gpu_memcpy", h, 60_000, 10, bytes=block))
     run = RunData(cell={}, config=moe, seconds=10.0, setup_s=1.0,
                   sent=np.zeros(1),
-                  done=np.ones(1), status=np.asarray(["done"]), stages=[],
-                  units_per_request=32, ops_per_request=0,
+                  done=np.ones(1), status=np.asarray(["done"]),
+                  **_emitted(["done"], [1.0], 32), stages=[],
+                  units_per_request=32, ops_per_unit=0,
                   request_bytes=block, max_batch=16, traced=(8.0, 10.0),
                   events=evs)
     need = 2 * 512 * 2_432_696_320 / 67e12

@@ -1,23 +1,40 @@
-"""A copy of the benchmark's files at test sizes, in a temporary root:
-the quickstart network on 16 x 32 images and the MoE stack with 8 experts
-at d_model 64, with the frozen plans rewritten to match and, unless asked
-to keep them, the cells' clients and samples cut to what the CPU
-serves."""
+"""A copy of the benchmark's files at test sizes, in a temporary root.
+
+Each configuration a cell names is cut by its kind's test sizes,
+``sizes/<kind>.py``: ``shrink(config, config_dir)`` rewrites the
+configuration (and any frozen plan beside it) to a size the CPU serves,
+and ``shrink_cell(cell)`` cuts a cell's clients and check sample, unless
+the cell's own traffic and check are asked for.  A new kind brings its
+sizes as a new file there.
+"""
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import shutil
 from pathlib import Path
+from types import ModuleType
 
 from portbench import catalog
 
-TINY_MOE = {"hidden_size": 64, "moe_intermediate_size": 32, "num_experts": 8,
-            "num_experts_per_tok": 2, "tokens_per_request": 4, "pool": 16}
+SIZES = Path(__file__).resolve().parent / "sizes"
 
 
 def _write(path: Path, obj) -> None:
     path.write_text(json.dumps(obj, indent=1))
+
+
+def sizes(kind: str) -> ModuleType:
+    """``sizes/<kind>.py``: the test sizes of one kind."""
+    path = SIZES / f"{kind}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"kind {kind!r} has no test sizes ({path})")
+    spec = importlib.util.spec_from_file_location(
+        f"portbench_test_sizes_{kind.replace('-', '_')}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def make_root(tmp: Path, shrink_cells: bool = True) -> Path:
@@ -27,34 +44,19 @@ def make_root(tmp: Path, shrink_cells: bool = True) -> Path:
     shutil.copy(src / "BENCHMARK.json", tmp / "BENCHMARK.json")
     shutil.copytree(src / "portbench", tmp / "portbench",
                     ignore=shutil.ignore_patterns("out", "__pycache__"))
-    cfgs = tmp / "portbench" / "configs"
-
-    cnn = json.loads((cfgs / "quickstart-cnn.json").read_text())
-    cnn["network"].update(img_h=16, img_w=32)
-    cnn["pool"] = 64
-    _write(cfgs / "quickstart-cnn.json", cnn)
-    plan = json.loads((cfgs / cnn["plan"]).read_text())
-    plan["workload"]["spec"].update(img_h=16, img_w=32)
-    _write(cfgs / cnn["plan"], plan)
-
-    moe = json.loads((cfgs / "qwen3-moe-30b-a3b-experts.json").read_text())
-    moe.update(TINY_MOE)
-    _write(cfgs / "qwen3-moe-30b-a3b-experts.json", moe)
-    plan = json.loads((cfgs / moe["plan"]).read_text())
-    spec = plan["workload"]["spec"]
-    spec.update(d_model=64, seq_len=4)
-    for layer in spec["layers"]:
-        layer.update(d_ff_expert=32, num_experts=8, top_k=2)
-    _write(cfgs / moe["plan"], plan)
-
+    cfgs = catalog.config_dir(tmp)
+    kinds = {}
+    for path in sorted((tmp / "portbench" / "cells").glob("*.json")):
+        name = json.loads(path.read_text())["config"]
+        if name not in kinds:
+            config = catalog.config(name, tmp)
+            kinds[name] = config["kind"]
+            sizes(config["kind"]).shrink(config, cfgs)
+            _write(cfgs / f"{name}.json", config)
     if not shrink_cells:
         return tmp
     for path in (tmp / "portbench" / "cells").glob("*.json"):
         cell = json.loads(path.read_text())
-        cell["traffic"]["clients"] = 8
-        cell["check"].update(keep_every=2, compare=min(
-            cell["check"]["compare"], 16))
-        if "moe" in path.name:
-            cell["check"].update(keep_run=8)
+        sizes(kinds[cell["config"]]).shrink_cell(cell)
         _write(path, cell)
     return tmp

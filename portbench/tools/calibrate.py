@@ -38,9 +38,8 @@ def main() -> None:
         bench = harness.Bench(args.workload, seed)
 
         async def main_():
-            await bench.warm()
+            await bench.server.warm()
             rec, _ = await bench.window(args.seconds)
-            await bench.gw.close()
             return rec
 
         rec = asyncio.run(main_())

@@ -1,6 +1,6 @@
 """The arithmetic the metric readers share, over a run's ``RunData``.
 
-Host readings (dispatch stages, completed work) come from the part of
+Host readings (dispatch stages, work produced) come from the part of
 the window before the traced slice; device readings from the slice's
 profiler events.  A reading with nothing to read is None.
 """
@@ -18,10 +18,12 @@ K1 = re.compile(r"(^|\s|::)fused_\w+_kernel<")
 
 
 def rate_per_s(run, end: Optional[float] = None) -> Optional[float]:
-    """Units (images, tokens) answered in [0, end) per second."""
+    """Units (images, tokens) the program produced in [0, end) per
+    second (a gateway's request emits its units when it is answered, a
+    decode step its tokens when it ends)."""
     end = run.seconds if end is None else end
-    n = int(np.sum(run.completed(end)))
-    return n * run.units_per_request / end if n else None
+    n = run.units_before(end)
+    return n / end if n else None
 
 
 def host_stages(run) -> List:
@@ -36,13 +38,12 @@ def stage_median_ms(run, of) -> Optional[float]:
 
 
 def mfu_pct(run, peak_per_s: float) -> Optional[float]:
-    """Operations of the requests answered before the traced slice, per
+    """Operations of the units produced before the traced slice, per
     second of that part of the window, as a share of ``peak_per_s``."""
     rate = rate_per_s(run, run.host_end)
     if rate is None:
         return None
-    return 100.0 * rate / run.units_per_request * run.ops_per_request \
-        / peak_per_s
+    return 100.0 * rate * run.ops_per_unit / peak_per_s
 
 
 def idle_share_pct(run) -> Optional[float]:
