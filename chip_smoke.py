@@ -261,6 +261,10 @@ order (any mismatch or error raises and the exit code is non-zero):
 
 ``python3 chip_smoke.py --only-parallel`` builds the kernels and runs
 phase 14 alone (no result line), for work on that phase;
+``--only-lm`` builds the kernels and runs the LM paths the serving
+``Engine`` drives (phase 10's kernel checks, goldens and full-width
+serving; phase 12's goldens and full-width Qwen3-MoE) and prints their
+numbers as one JSON line;
 ``--json-out PATH`` also writes the ``{"kernels": ...}`` line to PATH.
 
 It exits non-zero without a result where ``torch.cuda.is_available()``
@@ -2209,7 +2213,8 @@ def lm_golden(entries, path, archs, label):
                         for i, p in enumerate(
                             golden[f"{arch}/engine_prompts"])]
                 Engine(model, params, ServeConfig(
-                    max_batch=2, max_len=32, max_new_tokens=5)).run(reqs)
+                    max_batch=2, max_len=32, max_new_tokens=5,
+                    admission="lockstep")).run(reqs)
                 tokens = [r.out_tokens for r in reqs]
             return float(max(errs)), calls, tokens
 
@@ -2292,10 +2297,12 @@ def serve_full_width(entries, cfg, label, warm_up):
     the LM traffic, after ``warm_up()`` (untimed), the counters set to 0
     just before and read just after under ``label``: K8 once per
     attention layer per prefill and never in decode, K7
-    K7_PER_MAMBA_LAYER times per Mamba layer per prefill and decode step;
-    every request served whole.  Returns (the numbers: times, tokens/s,
-    peak memory, the decode step's byte bound and a decode profile;
-    the engine, which holds the model and its weights)."""
+    K7_PER_MAMBA_LAYER times per Mamba layer per prefill and decode step
+    (the per-slot Engine's steps are CUDA-graph replays, which
+    ``DecodeGraph`` adds to the counters); every request served whole.
+    Returns (the numbers: times, tokens/s, peak memory, the decode
+    step's byte bound and a decode profile; the engine, which holds the
+    model and its weights)."""
     import torch
     from repro_torch.launch import serve
 
@@ -4068,6 +4075,16 @@ def main() -> int:
         if "--only-parallel" in sys.argv[1:]:
             # phase 14 alone, for working on it (no result line)
             print(json.dumps({"parallel": parallel_phase({}, smi)}))
+            return 0
+        if "--only-lm" in sys.argv[1:]:
+            entries = {}
+            check_lm_kernels(entries)
+            lm_golden(entries, LM_GOLDEN, LM_ARCHS, "lm golden")
+            lm = lm_full_width(entries)
+            lm_golden(entries, LM_ZOO_GOLDEN, LM_ZOO_ARCHS, "lm zoo golden")
+            zoo = zoo_full_width(entries, smi)
+            print(json.dumps({"lm_full_width": lm, "lm_zoo_full_width": zoo,
+                              "card": smi}))
             return 0
         entries = check_kernels()
         entries.update(check_plane_kernels())

@@ -224,10 +224,16 @@ def cell_is_runnable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
 # ---------------------------------------------------------------------------
 
 _REGISTRY: dict = {}
+#: architectures the port serves beyond the reference's zoo: found by
+#: ``get_config`` and ``smoke_config``, left out of ``list_archs``, which
+#: mirrors the reference's registry
+_PORT_ONLY: set = set()
 
 
-def register(cfg: ModelConfig) -> ModelConfig:
+def register(cfg: ModelConfig, *, port_only: bool = False) -> ModelConfig:
     _REGISTRY[cfg.name] = cfg
+    if port_only:
+        _PORT_ONLY.add(cfg.name)
     return cfg
 
 
@@ -239,8 +245,9 @@ def get_config(name: str) -> ModelConfig:
 
 
 def list_archs():
+    """The reference's architectures (the port-only ones left out)."""
     _ensure_loaded()
-    return sorted(_REGISTRY)
+    return sorted(set(_REGISTRY) - _PORT_ONLY)
 
 
 _LOADED = False
@@ -249,6 +256,7 @@ _ARCH_MODULES = [
     "qwen3_moe_30b_a3b", "llama4_maverick_400b_a17b", "pixtral_12b",
     "whisper_medium", "granite_20b", "gemma2_9b", "llama3_2_3b",
     "gemma2_2b", "jamba_1_5_large_398b", "mamba2_1_3b", "paper_conv",
+    "qwen3_30b_a3b",
 ]
 
 

@@ -16,6 +16,14 @@ device attends over its own shards, the batch over the data axes and
 the heads over ``model`` where both the query and the kv heads divide it
 (``_on_shards``).  Tensors on ``meta`` (the dry run) take the chunked
 path, the path the reference's dry run lowers.
+
+Two things the reference's zoo has not, for the port-only Qwen3-30B-A3B:
+a config with ``qk_norm`` (``configs.qwen3_30b_a3b.QKNormConfig``)
+RMS-normalizes each query and key head over ``head_dim`` before RoPE,
+with per-layer ``q_norm`` and ``k_norm`` weights; and a decode step may
+take its cache position per row, a (B,) integer tensor: each row rotates,
+writes its K/V and attends to ``[0, pos[b]]`` at its own position.  An
+int position takes the reference's path and gives its numbers.
 """
 
 from __future__ import annotations
@@ -25,7 +33,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import apply_rope, dense_init, softcap
+from repro_torch.models.layers import (apply_rope, const_init, dense_init,
+                                       rms_norm, softcap)
 from repro_torch.parallel.sharding import (P, is_dtensor, kernel_placements,
                                            shard_map, to_placements)
 
@@ -35,29 +44,38 @@ NEG_INF = -2.3819763e38  # most-negative bf16-representable
 def init_attention(gen, cfg):
     d, h, kh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = cfg.torch_dtype
-    return {
+    p = {
         "wq": dense_init(gen, (d, h, hd), dt, fan_in=d),
         "wk": dense_init(gen, (d, kh, hd), dt, fan_in=d),
         "wv": dense_init(gen, (d, kh, hd), dt, fan_in=d),
         "wo": dense_init(gen, (h, hd, d), dt, fan_in=h * hd),
     }
+    if getattr(cfg, "qk_norm", False):     # no config of the reference's
+        p["q_norm"] = const_init(gen, (hd,), 0.0)
+        p["k_norm"] = const_init(gen, (hd,), 0.0)
+    return p
 
 
 def _attend(qc, k, v, row_pos, col_pos, *, causal, window, valid_len, cap,
             scale, logits_dtype=torch.float32):
-    """qc: (B,C,KH,G,Dh)  k,v: (B,T,KH,Dh)  row_pos: (C,)  col_pos: (T,)."""
+    """qc: (B,C,KH,G,Dh)  k,v: (B,T,KH,Dh)  row_pos: (C,), or (B,C) per
+    row  col_pos: (T,)  valid_len: None, an int, or (B,) per row."""
     logits = torch.einsum("bckgd,btkd->bckgt", qc.to(logits_dtype),
                           k.to(logits_dtype)).float() * scale
     logits = softcap(logits, cap)
-    mask = torch.ones((row_pos.shape[0], col_pos.shape[0]), dtype=torch.bool,
-                      device=qc.device)
+    rows = (row_pos if row_pos.ndim == 2 else row_pos[None])[:, :, None]
+    cols = col_pos[None, None, :]
+    mask = torch.ones(rows.shape[:2] + cols.shape[2:], dtype=torch.bool,
+                      device=qc.device)                      # (B|1, C, T)
     if causal:
-        mask &= col_pos[None, :] <= row_pos[:, None]
+        mask &= cols <= rows
     if window is not None:
-        mask &= col_pos[None, :] > (row_pos[:, None] - window)
-    if valid_len is not None:
-        mask &= (col_pos < valid_len)[None, :]
-    logits = torch.where(mask[None, :, None, None, :], logits,
+        mask &= cols > rows - window
+    if torch.is_tensor(valid_len):
+        mask &= cols < valid_len[:, None, None]
+    elif valid_len is not None:
+        mask &= cols < valid_len
+    logits = torch.where(mask[:, :, None, None, :], logits,
                          torch.full_like(logits, NEG_INF))
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bckgt,btkd->bckgd", probs.to(logits_dtype),
@@ -119,8 +137,10 @@ def multi_head_attention(q, k, v, *, causal: bool,
                          logits_bf16: bool = False):
     """q: (B,S,H,Dh); k,v: (B,T,KH,Dh) -> (B,S,H,Dh).
 
-    ``q_offset``: absolute position of q[0] (decode against a cache).
-    ``kv_valid_len``: scalar — mask cache positions >= it (decode).
+    ``q_offset``: absolute position of q[0] (decode against a cache),
+    an int or, per row, a (B,) integer tensor.
+    ``kv_valid_len``: scalar — mask cache positions >= it (decode); with
+    a per-row ``q_offset``, per row too, (B,).
     ``batch_shard``: reshard DTensor inputs and output with the batch
     over (data, model) (``_maybe_batch_shard``).
     """
@@ -157,9 +177,13 @@ def _chunked(q, k, v, *, causal, window, cap, q_offset, kv_valid_len,
     col_pos = torch.arange(t, device=q.device)
 
     if s == 1:  # decode: single query position, no chunking
-        # a fill, not a copy from the host, which would wait for the card
-        row_pos = torch.full((1,), int(q_offset), dtype=torch.int64,
-                             device=q.device)
+        if torch.is_tensor(q_offset):          # a position per row
+            row_pos = q_offset.reshape(b, 1)
+        else:
+            # a fill, not a copy from the host, which would wait for the
+            # card
+            row_pos = torch.full((1,), int(q_offset), dtype=torch.int64,
+                                 device=q.device)
         out = _attend(qg, k, v, row_pos, col_pos, causal=causal,
                       window=window, valid_len=kv_valid_len, cap=cap,
                       scale=scale, logits_dtype=ldt)
@@ -185,10 +209,19 @@ def _project(x, w):
     return (x @ w.reshape(d, h * hd)).reshape(*x.shape[:-1], h, hd)
 
 
-def _write_cache(cache: torch.Tensor, new: torch.Tensor, pos: int) -> None:
+def _write_cache(cache: torch.Tensor, new: torch.Tensor, pos) -> None:
     """``jax.lax.dynamic_update_slice(cache, new, (0, pos, 0, 0))`` in
-    place: the start clamps to [0, T - S] as XLA's does."""
+    place: the start clamps to [0, T - S] as XLA's does.  A per-row
+    ``pos`` (B,) writes each row's single new position (S = 1) at its
+    own, clamped the same way."""
     t, s = cache.shape[1], new.shape[1]
+    if torch.is_tensor(pos):
+        if s != 1:
+            raise ValueError(f"per-row cache positions write one position "
+                             f"a row, not {s}")
+        rows = torch.arange(cache.shape[0], device=cache.device)
+        cache[rows, pos.clamp(0, t - 1)] = new[:, 0].to(cache.dtype)
+        return
     start = min(max(int(pos), 0), t - s)
     cache[:, start:start + s] = new.to(cache.dtype)
 
@@ -205,13 +238,20 @@ def attention_block(p, x, cfg, *, causal=True, window=None,
         write position ``cache_pos`` (an int); attends to
         cache[0:cache_pos+1].  The new K/V are written into the cache
         tensors in place (the reference returns updated copies), and the
-        same tensors come back as the new cache.
+        same tensors come back as the new cache.  ``cache_pos`` may be a
+        (B,) integer tensor on x's device: row b then rotates and writes
+        at ``cache_pos[b]`` and attends to cache[b, 0:cache_pos[b]+1].
       * cross attention: ``cross_kv=(k, v)`` precomputed from the encoder.
     """
     b, s, _ = x.shape
+    per_row = torch.is_tensor(cache_pos)
     if positions is None:
-        start = 0 if cache_pos is None else int(cache_pos)
-        positions = (start + torch.arange(s, device=x.device))[None, :]
+        if per_row:
+            positions = cache_pos[:, None] \
+                + torch.arange(s, device=x.device)[None, :]
+        else:
+            start = 0 if cache_pos is None else int(cache_pos)
+            positions = (start + torch.arange(s, device=x.device))[None, :]
 
     q = _project(x, p["wq"])
     if cross_kv is not None:
@@ -224,11 +264,14 @@ def attention_block(p, x, cfg, *, causal=True, window=None,
     else:
         k = _project(x, p["wk"])
         vv = _project(x, p["wv"])
+        if "q_norm" in p:     # QK-norm: every head over head_dim
+            q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+            k = rms_norm(k, p["k_norm"], cfg.norm_eps)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         if cache_kv is not None:
             k_cache, v_cache = cache_kv
-            pos = int(cache_pos)
+            pos = cache_pos if per_row else int(cache_pos)
             _write_cache(k_cache, k, pos)
             _write_cache(v_cache, vv, pos)
             out = multi_head_attention(

@@ -10,12 +10,31 @@ The dry-run helpers ``init_abstract``, ``cache_abstract`` and
 ``input_specs`` return tensors on ``meta`` — the counterpart of
 ``jax.ShapeDtypeStruct`` stand-ins: the reference's shapes and dtypes,
 shardable, and never allocated.
+
+A decode step at per-row positions (``pos`` a tensor: the serving
+``Engine``'s per-slot steps) on a CUDA card replays one CUDA graph of the
+step (``DecodeGraph``), captured at the first such call for its
+parameters and cache and replayed while the caller passes the same
+ones: an eager step of a large model is bound by the host's launches
+(the published Qwen3-30B-A3B: about 6,000 a step), a replay is one.
+The first call runs the step eagerly and captures it after; a replay
+runs the captured kernels on the same tensors, so it returns what the
+eager step would; its logits live in the graph's memory and the next
+step overwrites them.  A kernel wrapper's counters (``.launches``,
+``.bmm_fallbacks``) move by what the step's Python adds; the capture's
+additions are taken back and added again at every replay, so they count
+the kernels that ran.  The graph is launched through libcuda holding
+the interpreter's lock (``_launch``): ``torch.profiler`` starts and
+stops while holding it, and a stop whose activity flush met a graph
+launch on another thread deadlocked (an H100 host, 2 of 7 traced runs
+of the serving benchmark).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, Dict
+import ctypes
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -26,10 +45,88 @@ from repro_torch.models import transformer as tf
 META = torch.device("meta")
 
 
+_LIBCUDA: Optional[ctypes.PyDLL] = None
+
+
+def _launch(graph: "torch.cuda.CUDAGraph") -> None:
+    """``graph.replay()`` (the graph holds no random state) as one
+    ``cuGraphLaunch`` on the current stream, called without releasing
+    the interpreter's lock, so that no profiler start or stop on another
+    thread overlaps the launch."""
+    global _LIBCUDA
+    if _LIBCUDA is None:
+        _LIBCUDA = ctypes.PyDLL("libcuda.so.1")
+    rc = _LIBCUDA.cuGraphLaunch(
+        ctypes.c_void_p(graph.raw_cuda_graph_exec()),
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"cuGraphLaunch failed with CUresult {rc}")
+
+
+def _counters():
+    """The kernel wrappers' counters a decode step can move, as
+    (wrapper, attribute)."""
+    from repro_torch.kernels import conv1d, flash_attention
+    from repro_torch.kernels import moe_expert_gemm as meg
+    return ((conv1d.causal_conv1d, "launches"),
+            (flash_attention.flash_attention, "launches"),
+            (meg.moe_expert_ffn, "launches"),
+            (meg.moe_expert_ffn, "bmm_fallbacks"))
+
+
+class DecodeGraph:
+    """``transformer.decode_step`` over one (params, cache) pair with
+    static token and position inputs: the first step eager, then
+    captured into a CUDA graph, every later step a replay.  ``first``
+    holds the eager step's logits until the caller takes them."""
+
+    def __init__(self, cfg: ModelConfig, params, cache, token, pos):
+        self.params, self.cache = params, cache
+        self.token = token.clone()
+        self.pos = torch.as_tensor(pos, dtype=torch.int64,
+                                   device=token.device).clone()
+        # the eager step on a side stream, as a capture wants warmed up
+        side = torch.cuda.Stream(token.device)
+        side.wait_stream(torch.cuda.current_stream(token.device))
+        with torch.cuda.stream(side):
+            self.first, _ = tf.decode_step(params, cache, self.token,
+                                           self.pos, cfg)
+        torch.cuda.current_stream(token.device).wait_stream(side)
+        self.first.record_stream(torch.cuda.current_stream(token.device))
+        # a capture records and runs nothing: its counts are a replay's
+        counters = _counters()
+        before = [getattr(f, a) for f, a in counters]
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.logits, _ = tf.decode_step(params, cache, self.token,
+                                            self.pos, cfg)
+        self.counts = []
+        for (f, a), n in zip(counters, before):
+            self.counts.append((f, a, getattr(f, a) - n))
+            setattr(f, a, n)
+
+    def serves(self, params, cache, token) -> bool:
+        return (params is self.params and cache is self.cache
+                and token.shape == self.token.shape)
+
+    def __call__(self, token, pos):
+        if self.first is not None:
+            first, self.first = self.first, None
+            return first
+        self.token.copy_(token)
+        self.pos.copy_(pos)
+        _launch(self.graph)
+        for f, a, n in self.counts:
+            setattr(f, a, getattr(f, a) + n)
+        return self.logits
+
+
 @dataclass
 class Model:
     cfg: ModelConfig
     device: torch.device
+    _decode_graph: Optional[DecodeGraph] = field(
+        default=None, init=False, repr=False, compare=False)
 
     # ---- param / cache construction ----------------------------------
     def init(self, generator: torch.Generator):
@@ -61,7 +158,19 @@ class Model:
         return tf.prefill(params, batch, self.cfg)
 
     def decode_step(self, params, cache, token, pos):
-        return tf.decode_step(params, cache, token, pos, self.cfg)
+        """One decode step; at per-row positions on a CUDA card, a
+        ``DecodeGraph`` step (made anew, its first step eager, when the
+        parameters, the cache or the batch differ from the last
+        one's)."""
+        if not (torch.is_tensor(pos) and self.device.type == "cuda"):
+            return tf.decode_step(params, cache, token, pos, self.cfg)
+        token = torch.as_tensor(token, dtype=torch.int64, device=self.device)
+        graph = self._decode_graph
+        if graph is None or not graph.serves(params, cache, token):
+            self._decode_graph = None          # free the old capture first
+            graph = self._decode_graph = DecodeGraph(self.cfg, params,
+                                                     cache, token, pos)
+        return graph(token, pos), cache
 
     # ---- dry-run input specs -------------------------------------------
     def input_specs(self, shape: ShapeConfig) -> Dict[str, Any]:

@@ -400,8 +400,10 @@ def _lookup(table, tokens):
 def _embed(params, tokens, cfg):
     x = _lookup(params["embed"], tokens)
     if cfg.scale_embeddings:
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
-                             device=x.device)
+        # the scale rounded to the stream's dtype on the host, as a
+        # Python number: no copy to the device (a CUDA graph's capture
+        # allows none), the same product as with a tensor of that dtype
+        x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype))
     return x
 
 
@@ -511,10 +513,16 @@ def prefill(params, batch, cfg):
 
 
 def decode_step(params, cache, token, pos, cfg):
-    """One decode step.  token: (B,1) ints; pos: int (write slot).
-    Returns (logits (B,V), cache), the cache updated in place."""
+    """One decode step.  token: (B,1) ints; pos: int (write slot), or a
+    (B,) integer tensor of each row's own write slot (attention rows
+    rotate, write and attend at their own position).  Returns (logits
+    (B,V), cache), the cache updated in place."""
     x = _embed(params, _tokens(params, token), cfg)
+    if torch.is_tensor(pos):
+        pos = torch.as_tensor(pos, dtype=torch.int64, device=x.device)
+    else:
+        pos = int(pos)
     x, _ = _run_stack(params, x, cfg, mode="decode", cache=cache,
-                      cache_pos=int(pos))
+                      cache_pos=pos)
     logits = _logits(params, x, cfg)
     return logits[:, 0], cache

@@ -8,14 +8,38 @@ standard continuous-batching discipline, with a static-shape slot pool.
 
 The decode cache is allocated once at (max_batch, max_len) on the
 model's device; prefill writes a prefix, decode appends in place.
-Admission is lockstep, as the reference's: every occupied slot shares
-one write position per step.  A decode step runs the whole pool: empty
-slots feed token 0, as the reference's do, and in an MoE LM those rows
-take expert capacity like any other, in slot order.
+``ServeConfig.admission`` picks the admission rule:
+
+``"per_slot"`` (the default)  any prompt shorter than ``max_len`` takes
+    a free slot; every slot keeps its own position, and a decode step
+    passes the slots' positions as a (max_batch,) tensor (one upload
+    with the tokens), so each row rotates, writes and attends at its
+    own.  An empty slot decodes token 0 at position 0, a write the next
+    admission's prefill overwrites.
+``"lockstep"``  the reference's rule: a request joins an occupied pool
+    only if its prompt is as long as the pool's shared position, and a
+    step passes that one position as an int; empty slots decode token 0
+    there.  The tests that hold the engine to the reference's use it.
+
+A decode step runs the whole pool: in an MoE LM the empty rows take
+expert capacity like any other, in slot order.
 
 Beside the reference's bookkeeping the engine counts its prefills and
-decode steps and the host seconds each took (``timings()``): both end
-in a read of the sampled tokens, so the seconds cover the device work.
+decode steps and the host seconds each took, the requests it admitted,
+the submissions it refused for want of a free slot, and ``slot_steps``,
+the live slots summed over decode steps (``timings()``): prefills and
+steps end in a read of the sampled tokens, so the seconds cover the
+device work.  While ``torch.profiler`` records, the engine records its
+spans (``ops.spans``)::
+
+    engine.submit          one admission (refused ones end at once)
+      engine.prefill         the prompt's upload and the model's prefill
+      engine.sample          sampling the first token and its read-back
+      engine.cache_write     the prefill's cache copied into the slot
+    engine.step            one decode step over the pool: the tokens'
+                           (and positions') upload, then
+      engine.decode          the model's decode step
+      engine.sample          sampling and the tokens' read-back
 """
 
 from __future__ import annotations
@@ -26,7 +50,10 @@ from typing import Dict, List, Optional
 
 import torch
 
+from repro_torch.ops import spans
 from repro_torch.serve.slots import SlotPool
+
+ADMISSIONS = ("per_slot", "lockstep")
 
 
 @dataclass
@@ -36,6 +63,7 @@ class ServeConfig:
     max_new_tokens: int = 64
     eos_id: int = -1                 # -1: never stops early
     temperature: float = 0.0         # 0 → greedy
+    admission: str = "per_slot"      # per_slot | lockstep (the reference's)
 
 
 @dataclass
@@ -52,6 +80,9 @@ class Engine(SlotPool):
 
     def __init__(self, model, params, cfg: ServeConfig, *,
                  generator: Optional[torch.Generator] = None):
+        if cfg.admission not in ADMISSIONS:
+            raise ValueError(f"admission {cfg.admission!r}: one of "
+                             f"{ADMISSIONS}")
         super().__init__(cfg.max_batch)
         self.model = model
         self.params = params
@@ -61,7 +92,9 @@ class Engine(SlotPool):
         self.generator = generator if generator is not None \
             else torch.Generator(device=model.device).manual_seed(0)
         self._timings = {"prefills": 0, "prefill_s": 0.0,
-                         "decode_steps": 0, "decode_s": 0.0}
+                         "decode_steps": 0, "decode_s": 0.0,
+                         "admitted": 0, "refused_no_slot": 0,
+                         "slot_steps": 0}
 
     # -- slot management (pool bookkeeping lives in SlotPool) ------------
     def _write_slot_cache(self, slot: int, cache_one, plen: int):
@@ -82,27 +115,46 @@ class Engine(SlotPool):
                     pool[:, slot] = upd[:, 0]
 
     def submit(self, req: Request) -> bool:
+        """Prefill ``req`` into a free slot; False when it must wait (no
+        free slot, or in lockstep a prompt the pool's position does not
+        match).  Per slot, a prompt that can never fit ``max_len``
+        raises ``ValueError``."""
+        with spans.span("engine.submit"):
+            return self._submit(req)
+
+    def _submit(self, req: Request) -> bool:
+        plen = len(req.prompt)
+        if self.cfg.admission == "per_slot" and plen >= self.cfg.max_len:
+            raise ValueError(f"a prompt of {plen} tokens leaves no decode "
+                             f"position below max_len {self.cfg.max_len}")
         slot = self._free_slot()
         if slot is None:
+            self._timings["refused_no_slot"] += 1
             return False
-        # lockstep admission: the pool shares one position counter per
-        # decode step, so a request can only join an occupied pool if its
-        # prompt length matches the pool's current position (otherwise it
-        # waits for the next wave).  Per-slot positions are future work.
-        occupied = [self.pos[i] for i, r in enumerate(self.active)
-                    if r is not None]
-        if occupied and len(req.prompt) != int(min(occupied)):
-            return False
+        if self.cfg.admission == "lockstep":
+            # the pool shares one position counter per decode step, so a
+            # request can only join an occupied pool if its prompt
+            # length matches the pool's current position (otherwise it
+            # waits for the next wave)
+            occupied = [self.pos[i] for i, r in enumerate(self.active)
+                        if r is not None]
+            if occupied and plen != int(min(occupied)):
+                return False
         t0 = time.perf_counter()
-        batch = {"tokens": torch.tensor([list(req.prompt)], dtype=torch.int64,
-                                        device=self.model.device)}
-        logits, cache_one = self.model.prefill(self.params, batch)
-        tok = self._sample(logits)
-        req.out_tokens.append(int(tok[0]))
-        self._write_slot_cache(slot, cache_one, len(req.prompt))
+        with spans.span("engine.prefill"):
+            batch = {"tokens": torch.tensor([list(req.prompt)],
+                                            dtype=torch.int64,
+                                            device=self.model.device)}
+            logits, cache_one = self.model.prefill(self.params, batch)
+        with spans.span("engine.sample"):
+            tok = int(self._sample(logits)[0])
+        req.out_tokens.append(tok)
+        with spans.span("engine.cache_write"):
+            self._write_slot_cache(slot, cache_one, plen)
         self._timings["prefills"] += 1
+        self._timings["admitted"] += 1
         self._timings["prefill_s"] += time.perf_counter() - t0
-        self.pos[slot] = len(req.prompt)
+        self.pos[slot] = plen
         self.active[slot] = req
         return True
 
@@ -117,17 +169,42 @@ class Engine(SlotPool):
         live = self.live()
         if not live:
             return
-        t0 = time.perf_counter()
-        toks = torch.zeros((self.cfg.max_batch, 1), dtype=torch.int64)
+        with spans.span("engine.step"):
+            self._step(live)
+
+    def _inputs(self, live):
+        """The step's tokens (max_batch, 1) and position on the model's
+        device: per slot, one upload of the tokens beside each slot's
+        position (an empty slot's token 0 at 0); in lockstep, the
+        tokens and the pool's shared position, an int."""
+        toks = [0] * self.cfg.max_batch
         for i, r in live:
-            toks[i, 0] = r.out_tokens[-1]
-        # all slots share one step; every slot writes at the shared
-        # position (lockstep admission keeps the live ones equal)
-        pos = int(max(self.pos[i] for i, _ in live))
-        logits, self.cache = self.model.decode_step(
-            self.params, self.cache, toks.to(self.model.device), pos)
-        nxt = self._sample(logits).tolist()
+            toks[i] = r.out_tokens[-1]
+        dev = self.model.device
+        if self.cfg.admission == "lockstep":
+            # all slots share one step; every slot writes at the shared
+            # position (lockstep admission keeps the live ones equal)
+            pos = int(max(self.pos[i] for i, _ in live))
+            return torch.tensor(toks, dtype=torch.int64)[:, None] \
+                .to(dev), pos
+        pos = [0] * self.cfg.max_batch
+        for i, _ in live:
+            pos[i] = self.pos[i]
+        both = torch.tensor([toks, pos], dtype=torch.int64).to(dev)
+        return both[0][:, None], both[1]
+
+    def _step(self, live):
+        t0 = time.perf_counter()
+        # the upload ends (the host waits for a pageable copy) just
+        # before ``engine.decode`` starts: a trace reader anchors there
+        toks, pos = self._inputs(live)
+        with spans.span("engine.decode"):
+            logits, self.cache = self.model.decode_step(
+                self.params, self.cache, toks, pos)
+        with spans.span("engine.sample"):
+            nxt = self._sample(logits).tolist()
         self._timings["decode_steps"] += 1
+        self._timings["slot_steps"] += len(live)
         self._timings["decode_s"] += time.perf_counter() - t0
         for i, r in live:
             t = int(nxt[i])
@@ -141,8 +218,9 @@ class Engine(SlotPool):
         self._note_step(len(live))
 
     def timings(self) -> Dict[str, float]:
-        """Prefills and decode steps run, and the host seconds each
-        kind took in all."""
+        """Prefills and decode steps run and the host seconds each kind
+        took in all; requests admitted, submissions refused for want of
+        a free slot, and the live slots summed over decode steps."""
         return dict(self._timings)
 
     # run() is inherited from SlotPool: heap-ordered queue backfill +

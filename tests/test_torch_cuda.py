@@ -786,7 +786,8 @@ def test_lm_on_card_matches_golden(cuda, arch):
         reqs = [Request(prompt=[int(t) for t in p], request_id=i)
                 for i, p in enumerate(g[f"{arch}/engine_prompts"])]
         Engine(model, params, ServeConfig(max_batch=2, max_len=32,
-                                          max_new_tokens=5)).run(reqs)
+                                          max_new_tokens=5,
+                                          admission="lockstep")).run(reqs)
         assert [r.out_tokens for r in reqs] \
             == g[f"{arch}/engine_tokens"].tolist()
 
@@ -1098,3 +1099,100 @@ def test_four_cards(cuda, tmp_path):
         ref = torch.tanh(ref @ torch.from_numpy(w[i]))
     for out in run_ranks("pipeline", 4, pipe_dir, backend="nccl"):
         assert float((out["out"] - ref).abs().max()) < 1e-5
+
+
+def test_per_row_decode_graph_matches_eager_on_card(cuda):
+    """The published Qwen3-30B-A3B at smoke size in bf16 (QK-norm,
+    dropless) on the card: three prompts of 5, 9 and 13 tokens in one
+    pool cache, decoded four steps at per-row positions through
+    ``Model.decode_step`` (a CUDA graph captured at the first step and
+    replayed) and through the eager ``transformer.decode_step`` on a
+    copy of the cache: the same logits and caches, bit for bit (the
+    same kernels on the same tensors), and the expert products' counter
+    moved once a layer a step; then the per-slot ``Engine``, in
+    float32 (TF32 off: a pool of three and a request alone take
+    products of other shapes), serves each request the tokens it gets
+    alone."""
+    from repro_torch.kernels import moe_expert_gemm as meg
+    from repro_torch.models import transformer as tf
+    cfg = smoke_config("qwen3-30b-a3b")
+    model = build_model(cfg, cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(5))
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (5, 9, 13)]
+    graphed = model.init_cache(3, 32)
+    toks = []
+    for b, p in enumerate(prompts):
+        logits, one = model.prefill(params, {"tokens": [p]})
+        for name in ("k", "v"):
+            graphed["s0"][name][:, b, :len(p)] = one["s0"][name][:, 0]
+        toks.append(int(logits.argmax(-1)))
+    eager = {k: {n: t.clone() for n, t in e.items()}
+             for k, e in graphed.items()}
+    tok = torch.tensor(toks, device=cuda)[:, None]
+    pos = torch.tensor([5, 9, 13], device=cuda)
+    ffn = meg.moe_expert_ffn
+    for _ in range(4):
+        n0 = ffn.bmm_fallbacks
+        got, _ = model.decode_step(params, graphed, tok, pos)
+        # the eager first step and each replay: every layer's bf16
+        # expert products once
+        assert ffn.bmm_fallbacks - n0 == cfg.n_layers
+        want, _ = tf.decode_step(params, eager, tok, pos, cfg)
+        assert torch.equal(got, want)
+        tok, pos = want.argmax(-1)[:, None], pos + 1
+    assert model._decode_graph is not None
+    for name in ("k", "v"):
+        assert torch.equal(graphed["s0"][name], eager["s0"][name])
+
+    cfg32 = cfg.with_overrides(dtype="float32")
+    params32 = build_model(cfg32, cuda).init(
+        torch.Generator(device=cuda).manual_seed(5))
+
+    def serve(batch, ps):
+        reqs = [Request(prompt=list(p)) for p in ps]
+        Engine(build_model(cfg32, cuda), params32, ServeConfig(
+            max_batch=batch, max_len=32, max_new_tokens=6)).run(reqs)
+        return [r.out_tokens for r in reqs]
+    assert serve(3, prompts) == [serve(1, [p])[0] for p in prompts]
+
+
+#: causal_conv1d launches per Mamba layer in a prefill or a decode step
+K7_PER_MAMBA_LAYER = 3
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-1.3b",
+                                  "gemma2-2b", "jamba-1.5-large-398b"])
+def test_per_slot_engine_on_card_serves_each_request_as_alone(cuda, arch):
+    """The per-slot ``Engine`` on the card (its decode steps CUDA-graph
+    replays after an eager first) at smoke size in float32 with TF32
+    off, dropless: prompts of 5, 9 and 13 tokens decoding together get
+    the tokens each gets alone; attention, sliding windows, Mamba state
+    (K7, counted once a Mamba layer a prefill and a decode step) and MoE
+    layers at per-row positions."""
+    import dataclasses
+    cfg = smoke_config(arch).with_overrides(dtype="float32")
+    if cfg.moe is not None:
+        cfg = cfg.with_overrides(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    params = build_model(cfg, cuda).init(
+        torch.Generator(device=cuda).manual_seed(6))
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (5, 9, 13)]
+    mamba = sum(s.mixer == "mamba" for s in cfg.layer_cycle) \
+        * cfg.n_cycles
+
+    def serve(batch, ps):
+        reqs = [Request(prompt=list(p)) for p in ps]
+        engine = Engine(build_model(cfg, cuda), params, ServeConfig(
+            max_batch=batch, max_len=32, max_new_tokens=6))
+        k7 = conv1d.causal_conv1d.launches
+        engine.run(reqs)
+        t = engine.timings()
+        assert conv1d.causal_conv1d.launches - k7 \
+            == K7_PER_MAMBA_LAYER * mamba * (t["prefills"]
+                                             + t["decode_steps"])
+        return [r.out_tokens for r in reqs]
+    assert serve(3, prompts) == [serve(1, [p])[0] for p in prompts]

@@ -355,7 +355,8 @@ def _serve_both(served, prompts, max_batch, max_len, n_new):
     port = [Request(prompt=list(p), request_id=i)
             for i, p in enumerate(prompts)]
     engine = Engine(tmodel, tparams, ServeConfig(
-        max_batch=max_batch, max_len=max_len, max_new_tokens=n_new))
+        max_batch=max_batch, max_len=max_len, max_new_tokens=n_new,
+        admission="lockstep"))
     engine.run(port)
     return ref, port, engine
 
@@ -446,7 +447,8 @@ def test_port_on_cpu_matches_lm_golden(arch):
             for i, p in enumerate(g[f"{arch}/engine_prompts"])]
     Engine(model, params, ServeConfig(
         max_batch=LM_ENGINE["max_batch"], max_len=LM_ENGINE["max_len"],
-        max_new_tokens=LM_ENGINE["new_tokens"])).run(reqs)
+        max_new_tokens=LM_ENGINE["new_tokens"],
+        admission="lockstep")).run(reqs)
     assert [r.out_tokens for r in reqs] \
         == g[f"{arch}/engine_tokens"].tolist()
 

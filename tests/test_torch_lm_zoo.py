@@ -222,7 +222,7 @@ def _golden_model(arch):
 def _serve(model, params, prompts, **kw):
     reqs = [Request(prompt=[int(t) for t in p], request_id=i)
             for i, p in enumerate(prompts)]
-    Engine(model, params, ServeConfig(**kw)).run(reqs)
+    Engine(model, params, ServeConfig(admission="lockstep", **kw)).run(reqs)
     return [r.out_tokens for r in reqs]
 
 
