@@ -163,7 +163,12 @@ order (any mismatch or error raises and the exit code is non-zero):
    fills of a seeded 512-token dispatch and their filled share), at
    bucket 1 and at a ragged shape, timed at both buckets against the
    three ``torch.bmm`` (``library_ms``) beside their bound over the
-   filled rows (a device time below its bound not measured); then the
+   filled rows (a device time below its bound not measured); the bf16
+   expert kernels at Qwen3-30B-A3B's dropless decode step (8 tokens) and
+   at a prefill of 1,108 tokens on seeded fills, against float32
+   products of the same bf16 inputs (MOE_BF16_TOL, and no further than
+   the bf16 ``torch.bmm``), timed against those ``torch.bmm`` beside
+   the bound of the experts that hold a row; then the
    full-width Qwen3-MoE-30B-A3B experts (2 layers, 32 tokens a block,
    d_model 2048, 128 experts, top 8, 768 wide) planned for ``v5e`` with
    fallback, compiled at max_batch 16 from a seeded draw on the card,
@@ -188,8 +193,8 @@ order (any mismatch or error raises and the exit code is non-zero):
    generator) through the launcher's ``serve_lm`` with phase 10's
    traffic after a one-layer warm-up, the counters set to 0 just before
    and read just after (K8 48 times per prefill, never in decode; the
-   bf16 MoE MLP's products on ``torch.bmm``: no expert kernel launch,
-   every call counted in ``bmm_fallbacks``):
+   bf16 MoE MLP's products on the bf16 expert kernels: launches counted,
+   no call in ``bmm_fallbacks``):
    prefill ms per request, decode ms per step, tokens/s, peak memory, a
    profiler trace of 16 decode steps (device ms, idle share, device ops
    per step, against the step's byte bound), one decode step under
@@ -261,7 +266,9 @@ order (any mismatch or error raises and the exit code is non-zero):
 
 ``python3 chip_smoke.py --only-parallel`` builds the kernels and runs
 phase 14 alone (no result line), for work on that phase;
-``--only-lm`` builds the kernels and runs the LM paths the serving
+``--only-experts`` builds the kernels and runs phase 11's expert
+kernels alone (float32 and bf16) and prints their numbers as one JSON
+line; ``--only-lm`` builds the kernels and runs the LM paths the serving
 ``Engine`` drives (phase 10's kernel checks, goldens and full-width
 serving; phase 12's goldens and full-width Qwen3-MoE) and prints their
 numbers as one JSON line;
@@ -420,6 +427,15 @@ MOE_TIMED_BLOCKS, MOE_PROFILED_STEPS = 256, 8
 # the expert kernels against their plain versions: float32 sums of 2048
 # (768) products in another order, outputs of order 1
 MOE_KERNEL_TOL = dict(rtol=1e-4, atol=1e-4)
+# the bf16 expert kernels: relative L2 of the filled rows against float32
+# products of the same bf16 inputs (each output rounded to bf16 once), no
+# larger than the three bf16 torch.bmm's; the shapes of Qwen3-30B-A3B's
+# dropless decode step (8 tokens) and of a prefill of the benchmark's mean
+# prompt (1,108 tokens), fills from seeded top-8 routings, and the seeds
+# the mean count of experts that hold a row is read over
+MOE_BF16_TOL = 2.0 ** -7
+MOE_BF16_CASES = (("decode", 8), ("prefill 1108", 1108))
+MOE_BF16_FILL_SEEDS = 16
 # the benchmark cell's dispatch: 32-token blocks, capacity factor 2
 MOE_BLOCK_TOKENS, MOE_CAPACITY_FACTOR = 32, 2.0
 # the LM-zoo phase: the five smoke archs against the JAX reference's
@@ -2802,6 +2818,105 @@ def moe_expert_kernels(smi):
                          "fill": fill.tolist(), "max_abs_err": errs})
     print(f"[moe expert kernels] ragged {[e, cap, d, f]} fills "
           f"{fill.tolist()}: max abs err {errs}")
+    out["bf16"] = moe_expert_kernels_bf16(smi)
+    return out
+
+
+def moe_expert_kernels_bf16(smi):
+    """Phase 11, the bf16 expert kernels at Qwen3-30B-A3B's widths
+    (E 128, top 8, d 2048, f 768, dropless: capacity n): at a decode
+    step of 8 tokens and a prefill of 1,108, on a seeded routing's
+    fills, each held to float32 products of the same bf16 inputs on the
+    filled rows (MOE_BF16_TOL relative L2, and no further than the three
+    bf16 ``torch.bmm``), then timed against those ``torch.bmm``
+    (``library_ms``) beside the bound of the experts that hold a row
+    and the bound of all of them, with the mean count of experts that
+    hold a row over MOE_BF16_FILL_SEEDS routings.  Returns the
+    numbers."""
+    import torch
+    from repro_torch.kernels import moe_expert_gemm as meg
+    from repro_torch.models import moe as moe_mod
+
+    def rel_l2(got, want, rows):
+        got, want = got[rows].float(), want[rows].float()
+        return float((got - want).norm() / want.norm())
+
+    e, k, d, f = 128, 8, 2048, 768
+    out = {"card": smi, "tol_rel_l2": MOE_BF16_TOL, "cases": []}
+    for label, n in MOE_BF16_CASES:
+        cap = moe_mod._capacity(e / k, n, k, e)
+        live = [int((_seeded_fill(e, k, n, cap, d, MOE_SEED + 100 + s)
+                     > 0).sum()) for s in range(MOE_BF16_FILL_SEEDS)]
+        fill = _seeded_fill(e, k, n, cap, d, MOE_SEED + 3)
+        g = torch.Generator(device="cuda").manual_seed(MOE_SEED + 3)
+        filled = _filled_rows(fill, cap)
+        x = torch.randn(e, cap, d, generator=g, device="cuda") \
+            .masked_fill(~filled, 0).bfloat16()
+        ws = {name: (torch.randn(e, *shape, generator=g, device="cuda")
+                     / shape[0] ** 0.5).bfloat16()
+              for name, shape in (("w_gate", (d, f)), ("w_up", (d, f)),
+                                  ("w_down", (f, d)))}
+        rows = n * k
+
+        def kernels():
+            return meg.moe_expert_ffn(x, ws["w_gate"], ws["w_up"],
+                                      ws["w_down"], fill, rows)
+
+        def bmm():
+            return meg.expert_ffn_bmm(x, ws["w_up"], ws["w_down"],
+                                      ws["w_gate"])
+        xf = x.float()
+        h32 = torch.nn.functional.silu(torch.bmm(xf, ws["w_gate"].float())) \
+            * torch.bmm(xf, ws["w_up"].float())
+        y32 = torch.bmm(h32, ws["w_down"].float())
+        del xf, h32
+        n0 = meg.moe_expert_ffn.launches
+        y = kernels()
+        torch.cuda.synchronize()
+        if meg.moe_expert_ffn.launches - n0 != 2:
+            raise AssertionError(f"moe expert kernels bf16 {label}: "
+                                 f"{meg.moe_expert_ffn.launches - n0} "
+                                 f"launches, not 2")
+        r = filled.expand_as(y)
+        err, err_bmm = rel_l2(y, y32, r), rel_l2(bmm(), y32, r)
+        if not (torch.isfinite(y[r]).all() and err <= MOE_BF16_TOL
+                and err <= err_bmm):
+            raise AssertionError(f"moe expert kernels bf16 {label}: relative "
+                                 f"L2 {err} (torch.bmm {err_bmm}, limit "
+                                 f"{MOE_BF16_TOL})")
+        del y, y32
+        b_ms, b_by, flops = _useful_expert_bound(fill, d, f, itemsize=2,
+                                                 rate=BF16_FLOPS_PER_S)
+        all_ms, all_by, _ = _expert_bound(e, cap, d, f, 2, BF16_FLOPS_PER_S)
+        res = {"label": label, "shape": [e, cap, d, f], "rows_bound": rows,
+               "filled_rows": int(fill.sum()),
+               "experts_with_rows": int((fill > 0).sum()),
+               "experts_with_rows_mean": sum(live) / len(live),
+               "experts_with_rows_seeds": live, "max_fill": int(fill.max()),
+               "rel_l2": err, "library_rel_l2": err_bmm,
+               "ms": time_ms(kernels, 20),
+               "device_ms": device_ms(kernels, "moe_expert_gemm_bf16",
+                                      iters=10),
+               "gate_up_device_ms": device_ms(
+                   kernels, "moe_expert_gemm_bf16_kernel<true>", iters=10),
+               "down_device_ms": device_ms(
+                   kernels, "moe_expert_gemm_bf16_kernel<false>", iters=10),
+               "library_ms": time_ms(bmm, 20),
+               "library_device_ms": device_ms(bmm, iters=10),
+               "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
+               "all_experts_bound_ms": all_ms, "all_experts_bound_by": all_by}
+        tag = f"moe expert kernels bf16 {label}"
+        _unless_lost(res, "device_ms", b_ms, tag)
+        for part in ("gate_up", "down"):
+            _unless_lost(res, f"{part}_device_ms", _useful_expert_bound(
+                fill, d, f, part, 2, BF16_FLOPS_PER_S)[0], tag)
+        _unless_lost(res, "library_device_ms", all_ms, tag)
+        if res["device_ms"]:
+            res["bound_share"] = b_ms / res["device_ms"]
+        out["cases"].append(res)
+        print(f"[moe expert kernels bf16] {label}: {json.dumps(res)}")
+        del x, ws
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2999,13 +3114,15 @@ def zoo_full_width(entries, smi):
     res, engine = serve_full_width(
         entries, cfg, f"lm zoo full width {ZOO_FULL_ARCH}", warm_up)
     res["card"] = smi
-    # the bf16 MoE MLP keeps torch.bmm: no expert kernel launches
+    # the bf16 MoE MLP in inference runs the bf16 expert kernels: no
+    # torch.bmm
     res["expert_calls"] = {"launches": ffn.launches - counts0[0],
                            "bmm_fallbacks": ffn.bmm_fallbacks - counts0[1]}
-    if res["expert_calls"]["launches"] or \
-            not res["expert_calls"]["bmm_fallbacks"]:
-        raise AssertionError(f"lm zoo full width: the bf16 MoE MLP left "
-                             f"torch.bmm: {res['expert_calls']}")
+    if res["expert_calls"]["bmm_fallbacks"] or \
+            not res["expert_calls"]["launches"]:
+        raise AssertionError(f"lm zoo full width: the bf16 MoE MLP did not "
+                             f"run the expert kernels alone: "
+                             f"{res['expert_calls']}")
     print(f"[lm zoo full width] {ZOO_FULL_ARCH} expert products: "
           f"moe_expert_ffn.launches {res['expert_calls']['launches']}, "
           f"bmm_fallbacks {res['expert_calls']['bmm_fallbacks']}")
@@ -4075,6 +4192,10 @@ def main() -> int:
         if "--only-parallel" in sys.argv[1:]:
             # phase 14 alone, for working on it (no result line)
             print(json.dumps({"parallel": parallel_phase({}, smi)}))
+            return 0
+        if "--only-experts" in sys.argv[1:]:
+            # phase 11's expert kernels alone, float32 and bf16
+            print(json.dumps({"expert_kernels": moe_expert_kernels(smi)}))
             return 0
         if "--only-lm" in sys.argv[1:]:
             entries = {}

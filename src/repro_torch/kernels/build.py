@@ -42,12 +42,14 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("conv1_layer", "fused_dot_layer", "packed_dot_layer",
            "conv2_planes", "conv3_planes", "conv4_planes", "causal_conv1d",
-           "flash_attention", "moe_expert_gemm")
+           "flash_attention", "moe_expert_gemm", "moe_expert_gemm_bf16")
 # C entries beyond ``repro_<library>``, by the library that holds them
 ENTRIES = {"fused_dot_layer_requant": "fused_dot_layer",
            "packed_dot_layer_requant": "packed_dot_layer",
            "moe_expert_gemm_gate_up": "moe_expert_gemm",
-           "moe_expert_gemm_down": "moe_expert_gemm"}
+           "moe_expert_gemm_down": "moe_expert_gemm",
+           "moe_expert_gemm_bf16_gate_up": "moe_expert_gemm_bf16",
+           "moe_expert_gemm_bf16_down": "moe_expert_gemm_bf16"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,5 +1,6 @@
 """The MoE expert products over the filled rows of each expert's capacity
-buffer: two CUDA kernels and their plain version.
+buffer: two CUDA kernels in each of float32 and bf16, and their plain
+version.
 
 The reference computes the experts' FFN with jnp ``einsum``s over the
 whole (experts, capacity, d) buffer (``repro.models.moe``).
@@ -9,12 +10,22 @@ kernels do not take, and it is the kernels' plain version: a row's
 products read only that row, so on every filled row it computes what
 they do.  ``moe_expert_ffn`` takes each expert's fill, the tokens its
 buffer holds (``clamp(counts, max=capacity)``, on the device), and
-computes only those rows, in float32, in two launches
-(``csrc/moe_expert_gemm.cu``):
+computes only those rows, in two launches:
 
 * ``moe_expert_gemm_gate_up``: h = silu(x · W_gate) * (x · W_up), the
   SiLU and the product in the kernel's epilogue;
 * ``moe_expert_gemm_down``: y = h · W_down.
+
+Each runs the kernel of its tensors' dtype: float32 on the CUDA cores
+(``csrc/moe_expert_gemm.cu``: the MoE serving workload), bf16 on the
+tensor cores with float32 sums, each output rounded to bf16 once
+(``csrc/moe_expert_gemm_bf16.cu``: an LM's MoE MLP).  The two share no
+device code: the float32 products want the CUDA cores' multiply-adds,
+the bf16 ones the tensor cores.  The bf16 kernels also take ``rows``,
+an upper bound of the fills' sum that the host knows (the routed
+assignments, tokens × top-k): it sizes their grid over the experts'
+row tiles, so that a prefill, whose capacity is every token, launches
+no block per empty tile.
 
 Rows at or past an expert's fill are unspecified: the kernels do not
 write them (the outputs are ``torch.empty``), and whoever reads the
@@ -29,6 +40,7 @@ take).
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +56,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _GATE_UP_ARGTYPES = (_P,) * 5 + (_I,) * 4 + (_P,)
 # h, w_down, fill, y, e, cap, f, d, stream
 _DOWN_ARGTYPES = (_P,) * 4 + (_I,) * 4 + (_P,)
+# the bf16 entries: the same, with rows before the stream
+_BF16_GATE_UP_ARGTYPES = (_P,) * 5 + (_I,) * 5 + (_P,)
+_BF16_DOWN_ARGTYPES = (_P,) * 4 + (_I,) * 5 + (_P,)
+# the dtypes the kernels take, and the elements of the 16 bytes that each
+# row's width must be whole multiples of (float4 loads; TMA's strides)
+_VECTOR = {torch.float32: 4, torch.bfloat16: 8}
 
 
 def expert_ffn_bmm(x, w_up, w_down, w_gate=None, act=F.silu,
@@ -63,18 +81,19 @@ def expert_ffn_bmm(x, w_up, w_down, w_gate=None, act=F.silu,
 
 def takes(x: torch.Tensor, p, act: str) -> bool:
     """Whether the kernels compute the experts' FFN of buffers ``x``
-    (E, C, D) under weights ``p``: a gated SiLU FFN in float32 on the
-    card, off the autograd graph, with plain tensors (no DTensor) whose
-    widths are whole float4s."""
-    if act != "silu" or "w_gate" not in p:
+    (E, C, D) under weights ``p``: a gated SiLU FFN in float32 or bf16
+    (every tensor the same) on the card, off the autograd graph, with
+    plain tensors (no DTensor) whose widths are whole 16-byte vectors."""
+    if act != "silu" or "w_gate" not in p or x.dtype not in _VECTOR:
         return False
     ts = (x, p["w_gate"], p["w_up"], p["w_down"])
-    return (all(type(t) in _PLAIN and t.dtype == torch.float32
+    vec = _VECTOR[x.dtype]
+    return (all(type(t) in _PLAIN and t.dtype == x.dtype
                 and t.device == x.device for t in ts)
             and x.device.type == DEVICE
             and not (torch.is_grad_enabled()
                      and any(t.requires_grad for t in ts))
-            and x.shape[-1] % 4 == 0 and p["w_up"].shape[-1] % 4 == 0)
+            and x.shape[-1] % vec == 0 and p["w_up"].shape[-1] % vec == 0)
 
 
 def _check(x, w_gate, w_up, w_down, fill) -> None:
@@ -91,25 +110,30 @@ def _check(x, w_gate, w_up, w_down, fill) -> None:
     if tuple(fill.shape) != (e,) or fill.dtype != torch.int64:
         raise ValueError(f"moe_expert_ffn: fill must be ({e},) int64, got "
                          f"{tuple(fill.shape)} {fill.dtype}")
-    for t in (x, w_gate, w_up, w_down):
-        if t.dtype != torch.float32:
-            raise ValueError(f"moe_expert_ffn: float32 only, got {t.dtype}")
+    if x.dtype not in _VECTOR or any(t.dtype != x.dtype
+                                     for t in (w_gate, w_up, w_down)):
+        raise ValueError(f"moe_expert_ffn: float32 or bf16, every tensor "
+                         f"the same, got {x.dtype}, {w_gate.dtype}, "
+                         f"{w_up.dtype}, {w_down.dtype}")
     if any(t.device != x.device for t in (w_gate, w_up, w_down, fill)):
         raise ValueError("moe_expert_ffn: every tensor on x's device")
 
 
 def moe_expert_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-                   w_down: torch.Tensor, fill: torch.Tensor) -> torch.Tensor:
+                   w_down: torch.Tensor, fill: torch.Tensor,
+                   rows: Optional[int] = None) -> torch.Tensor:
     """The gated SiLU FFN of every expert over its buffer's filled rows:
-    x (E, C, D), w_gate and w_up (E, D, F), w_down (E, F, D) in float32,
-    fill (E,) int64 (rows held, at most C) → (E, C, D), whose rows at or
-    past an expert's fill are unspecified.  Two launches on the card; the
-    plain version (``expert_ffn_bmm``, every row) on the CPU."""
+    x (E, C, D), w_gate and w_up (E, D, F), w_down (E, F, D) in float32
+    or bf16, fill (E,) int64 (rows held, at most C) → (E, C, D), whose
+    rows at or past an expert's fill are unspecified; ``rows`` an upper
+    bound of ``fill.sum()`` (default E · C).  Two launches on the card;
+    the plain version (``expert_ffn_bmm``, every row) on the CPU."""
     _check(x, w_gate, w_up, w_down, fill)
     if x.device.type == "cpu":
         return expert_ffn_bmm(x, w_up, w_down, w_gate)
-    return moe_expert_gemm_down(moe_expert_gemm_gate_up(x, w_gate, w_up, fill),
-                                w_down, fill)
+    return moe_expert_gemm_down(
+        moe_expert_gemm_gate_up(x, w_gate, w_up, fill, rows), w_down, fill,
+        rows)
 
 
 def _launchable(name: str, *tensors) -> None:
@@ -121,49 +145,75 @@ def _launchable(name: str, *tensors) -> None:
     if x.device.index != torch.cuda.current_device():
         raise ValueError(f"{name}: x is on {x.device} but the current "
                          f"device is cuda:{torch.cuda.current_device()}")
-    if x.shape[-1] % 4 or tensors[1].shape[-1] % 4:
-        raise ValueError(f"{name}: the widths must be multiples of 4, got "
-                         f"{x.shape[-1]} and {tensors[1].shape[-1]}")
+    vec = _VECTOR.get(x.dtype)
+    if vec is None or any(t.dtype != x.dtype for t in tensors[1:-1]):
+        raise ValueError(f"{name}: float32 or bf16 tensors of one dtype, "
+                         f"got {[t.dtype for t in tensors[:-1]]}")
+    if x.shape[-1] % vec or tensors[1].shape[-1] % vec:
+        raise ValueError(f"{name}: the widths must be multiples of {vec}, "
+                         f"got {x.shape[-1]} and {tensors[1].shape[-1]}")
 
 
-def moe_expert_gemm_gate_up(x, w_gate, w_up, fill) -> torch.Tensor:
-    """silu(x · W_gate) * (x · W_up) on each expert's filled rows: one
-    launch on the card (counted)."""
+def _rows(rows: Optional[int], e: int, cap: int) -> int:
+    """The bound of the fills' sum a bf16 launch sizes its grid by: the
+    caller's, or every row of the buffer."""
+    return e * cap if rows is None else min(int(rows), e * cap)
+
+
+def moe_expert_gemm_gate_up(x, w_gate, w_up, fill,
+                            rows: Optional[int] = None) -> torch.Tensor:
+    """silu(x · W_gate) * (x · W_up) on each expert's filled rows, in
+    x's dtype: one launch on the card (counted)."""
     _launchable("moe_expert_gemm_gate_up", x, w_gate, w_up, fill)
     e, cap, d = x.shape
     f = w_up.shape[-1]
-    h = torch.empty((e, cap, f), dtype=torch.float32, device=x.device)
+    h = torch.empty((e, cap, f), dtype=x.dtype, device=x.device)
     if h.numel() == 0:
         return h
-    fn = build.kernel("moe_expert_gemm_gate_up", _GATE_UP_ARGTYPES)
-    err = fn(x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
-             fill.data_ptr(), h.data_ptr(), e, cap, d, f,
-             torch.cuda.current_stream(x.device).cuda_stream)
-    build.check("moe_expert_gemm_gate_up", err)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    ptrs = (x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
+            fill.data_ptr(), h.data_ptr())
+    if x.dtype == torch.bfloat16:
+        entry = "moe_expert_gemm_bf16_gate_up"
+        err = build.kernel(entry, _BF16_GATE_UP_ARGTYPES)(
+            *ptrs, e, cap, d, f, _rows(rows, e, cap), stream)
+    else:
+        entry = "moe_expert_gemm_gate_up"
+        err = build.kernel(entry, _GATE_UP_ARGTYPES)(*ptrs, e, cap, d, f,
+                                                     stream)
+    build.check(entry, err)
     moe_expert_ffn.launches += 1
     # the work of the whole capacity, an upper bound: the fills stay on
     # the device, so the host cannot count the filled rows
-    build.report_work("moe_expert_gemm_gate_up", 2 * 2 * e * cap * d * f,
-                      4 * (e * cap * d + 2 * e * d * f + e * cap * f))
+    build.report_work(entry, 2 * 2 * e * cap * d * f, x.element_size()
+                      * (e * cap * d + 2 * e * d * f + e * cap * f))
     return h
 
 
-def moe_expert_gemm_down(h, w_down, fill) -> torch.Tensor:
-    """h · W_down on each expert's filled rows: one launch on the card
-    (counted)."""
+def moe_expert_gemm_down(h, w_down, fill,
+                         rows: Optional[int] = None) -> torch.Tensor:
+    """h · W_down on each expert's filled rows, in h's dtype: one launch
+    on the card (counted)."""
     _launchable("moe_expert_gemm_down", h, w_down, fill)
     e, cap, f = h.shape
     d = w_down.shape[-1]
-    y = torch.empty((e, cap, d), dtype=torch.float32, device=h.device)
+    y = torch.empty((e, cap, d), dtype=h.dtype, device=h.device)
     if y.numel() == 0:
         return y
-    fn = build.kernel("moe_expert_gemm_down", _DOWN_ARGTYPES)
-    err = fn(h.data_ptr(), w_down.data_ptr(), fill.data_ptr(), y.data_ptr(),
-             e, cap, f, d, torch.cuda.current_stream(h.device).cuda_stream)
-    build.check("moe_expert_gemm_down", err)
+    stream = torch.cuda.current_stream(h.device).cuda_stream
+    ptrs = (h.data_ptr(), w_down.data_ptr(), fill.data_ptr(), y.data_ptr())
+    if h.dtype == torch.bfloat16:
+        entry = "moe_expert_gemm_bf16_down"
+        err = build.kernel(entry, _BF16_DOWN_ARGTYPES)(
+            *ptrs, e, cap, f, d, _rows(rows, e, cap), stream)
+    else:
+        entry = "moe_expert_gemm_down"
+        err = build.kernel(entry, _DOWN_ARGTYPES)(*ptrs, e, cap, f, d,
+                                                  stream)
+    build.check(entry, err)
     moe_expert_ffn.launches += 1
-    build.report_work("moe_expert_gemm_down", 2 * e * cap * d * f,
-                      4 * (e * cap * f + e * f * d + e * cap * d))
+    build.report_work(entry, 2 * e * cap * d * f, h.element_size()
+                      * (e * cap * f + e * f * d + e * cap * d))
     return y
 
 

@@ -9,13 +9,14 @@ routing); the combine step re-weights by the router probability and sums
 the surviving top-k paths, reading only the buffer's filled rows.
 
 The products (``_expert_ffn``) adapt to what they are given.  On the
-flat path without a mesh, a gated SiLU FFN in float32 on the card off
-the autograd graph (the MoE serving workload, and an LM's MoE MLP at
-float32 in inference) runs ``kernels.moe_expert_gemm``: each expert's
-fill (its count clamped to the capacity, on the device) bounds the rows
-computed, two launches.  Every other call (the CPU, an LM's bf16 MoE
-MLP, training, the grouped path, DTensors) runs three batched products
-(``torch.bmm``) over every row.
+flat path without a mesh, a gated SiLU FFN in float32 or bf16 on the
+card off the autograd graph (the MoE serving workload in float32, an
+LM's MoE MLP in inference in its dtype) runs ``kernels.moe_expert_gemm``:
+each expert's fill (its count clamped to the capacity, on the device)
+bounds the rows computed, two launches of the dtype's kernels.  Every
+other call (the CPU, training, the grouped path, DTensors, an ungated
+or non-SiLU FFN) runs three batched products (``torch.bmm``) over every
+row.
 
 Parity with the reference, which runs this path in float32:
 
@@ -222,14 +223,15 @@ def _rank(flat_ids: torch.Tensor, counts: torch.Tensor, capacity: int,
 
 def _expert_ffn(expert_in: torch.Tensor, p, act: str,
                 hints: bool = False,
-                fill: Optional[torch.Tensor] = None) -> torch.Tensor:
+                fill: Optional[torch.Tensor] = None,
+                rows: Optional[int] = None) -> torch.Tensor:
     """The experts' FFN over their buffers (e, c, d) → (e, c, d), inside
     the ``moe.experts`` span.  Given each expert's ``fill`` (rows its
-    buffer holds, on the device), a call that
-    ``kernels.moe_expert_gemm.takes`` (on the card, float32, no
-    gradient, gated SiLU, no DTensor) computes only the filled rows
-    (``moe_expert_ffn``: two kernels), and the rows past the fill are
-    unspecified.
+    buffer holds, on the device; ``rows`` a bound of their sum), a call
+    that ``kernels.moe_expert_gemm.takes`` (on the card, float32 or
+    bf16, no gradient, gated SiLU, no DTensor) computes only the filled
+    rows (``moe_expert_ffn``: two kernels), and the rows past the fill
+    are unspecified.
     Every other call runs ``expert_ffn_bmm``: three (two ungated)
     batched products over every row (DTensor products under a mesh, the
     hidden activations hinted to experts over ``model``), counted in
@@ -237,7 +239,7 @@ def _expert_ffn(expert_in: torch.Tensor, p, act: str,
     with spans.span("moe.experts"):
         if fill is not None and meg.takes(expert_in, p, act):
             return meg.moe_expert_ffn(expert_in, p["w_gate"], p["w_up"],
-                                      p["w_down"], fill)
+                                      p["w_down"], fill, rows)
         meg.moe_expert_ffn.bmm_fallbacks += 1
         return meg.expert_ffn_bmm(
             expert_in, p["w_up"], p["w_down"], p.get("w_gate"),
@@ -309,8 +311,9 @@ def _moe_layer_flat(p, x: torch.Tensor, cfg):
         expert_in, slot, keep, top_vals, aux, fill = route_dispatch(
             xf, p["router"])
     expert_in = _hint(expert_in, ("model", "data", None), hints)
-    expert_out = _hint(_expert_ffn(expert_in, p, cfg.act, hints, fill),
-                       ("model", "data", None), hints)
+    # every assignment fills at most one row: n · k bounds the fills' sum
+    expert_out = _hint(_expert_ffn(expert_in, p, cfg.act, hints, fill,
+                                   n * k), ("model", "data", None), hints)
     # free the buffers before the combine, whose gathers set the layer's
     # peak memory
     del expert_in, fill

@@ -885,6 +885,152 @@ def test_moe_expert_gemm_matches_plain_on_card(cuda, e, cap, d, f, fill):
                                    atol=1e-4)
 
 
+#: relative L2 error of the bf16 expert kernels' filled rows against
+#: float32 products of the same bf16 inputs: each output is rounded to
+#: bf16 once (a relative error of at most 2^-9; h's rounding adds as much
+#: again to y), so twice bf16's rounding unit, 2^-7, holds them with room
+BF16_EXPERT_TOL = 2.0 ** -7
+
+#: (E, C, D, F, fills, rows) of the bf16 expert kernels' card cases:
+#: "decode" is Qwen3-30B-A3B's decode step (8 tokens, top 8, dropless:
+#: capacity 8), its fills from a seeded routing; "prefill" a prompt of
+#: 1,108 tokens (capacity 1,108) with skewed fills, one expert holding
+#: every token; "ragged" widths that are no multiple of the column
+#: slices or of K's stage, fills past the capacity, and a bound of 0 on
+#: the fills' sum, so that each block loops over the items
+BF16_EXPERT_CASES = {
+    "decode": (128, 8, 2048, 768, "route:8", 64),
+    "decode-empty": (128, 8, 2048, 768, "all:0", 64),
+    "decode-full": (128, 8, 2048, 768, "all:8", None),
+    "prefill": (128, 1108, 2048, 768, "skew:1108", 8 * 1108),
+    "ragged": (6, 100, 136, 104, [0, 1, 7, 8, 65, 130], 0),
+}
+
+
+def _bf16_expert_fill(spec, e, cap, d, seed):
+    """Each expert's fill for a case: a seeded top-8 routing of n tokens
+    (``route:n``), every expert at n (``all:n``), a skewed split of
+    8 n rows (``skew:n``: shares as 1 / (i + 1)^1.5, clamped to the
+    capacity), or the list itself."""
+    from repro_torch.models import moe as moe_mod
+    if isinstance(spec, list):
+        return torch.tensor(spec, device="cuda")
+    kind, n = spec.split(":")
+    n = int(n)
+    if kind == "all":
+        return torch.full((e,), n, dtype=torch.int64, device="cuda")
+    if kind == "skew":
+        share = 1.0 / np.arange(1, e + 1) ** 1.5
+        fill = np.floor(8 * n * share / share.sum()).astype(np.int64)
+        fill[e // 2:] = 0
+        return torch.from_numpy(np.minimum(fill, cap)).cuda()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(n, d, generator=g, device="cuda")
+    router = torch.randn(d, e, generator=g, device="cuda") / d ** 0.5
+    _, _, ids = moe_mod._route(x, router, 8)
+    return torch.clamp(moe_mod._expert_counts(ids.reshape(-1), e), max=cap)
+
+
+def _bf16_expert_inputs(e, cap, d, f, fill, seed):
+    """bf16 buffers x (E, C, D), zeros past each fill as the dispatch
+    leaves them, the weights, and the (E, C, 1) filled rows."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    filled = (torch.arange(cap, device="cuda")[None, :]
+              < fill[:, None])[..., None]
+    x = torch.randn(e, cap, d, generator=g, device="cuda") \
+        .masked_fill(~filled, 0).bfloat16()
+    wg, wu = ((torch.randn(e, d, f, generator=g, device="cuda")
+               / d ** 0.5).bfloat16() for _ in range(2))
+    wd = (torch.randn(e, f, d, generator=g, device="cuda")
+          / f ** 0.5).bfloat16()
+    return x, wg, wu, wd, filled
+
+
+def _rel_l2_rows(got, want, rows):
+    got, want = got[rows].float(), want[rows].float()
+    return float((got - want).norm() / want.norm())
+
+
+@pytest.mark.parametrize("case", sorted(BF16_EXPERT_CASES))
+def test_moe_expert_gemm_bf16_matches_float32_on_card(cuda, case):
+    """The bf16 expert kernels on each case's filled rows against float32
+    products of the same bf16 inputs (TF32 off): within BF16_EXPERT_TOL
+    relative L2, and at least as close as ``expert_ffn_bmm`` in bf16
+    (three roundings where the kernels' epilogue rounds once); the down
+    kernel alone on the gate_up kernel's h equal to the pair; with every
+    row past the fill NaN in x and in h, every written row unchanged bit
+    for bit; two launches a call."""
+    from repro_torch.kernels import moe_expert_gemm as meg
+    e, cap, d, f, spec, rows = BF16_EXPERT_CASES[case]
+    fill = _bf16_expert_fill(spec, e, cap, d, seed=11)
+    x, wg, wu, wd, filled = _bf16_expert_inputs(e, cap, d, f, fill, seed=12)
+    xf, wgf, wuf, wdf = (t.float() for t in (x, wg, wu, wd))
+    h_want = torch.nn.functional.silu(torch.bmm(xf, wgf)) * torch.bmm(xf, wuf)
+    y_want = torch.bmm(h_want, wdf)
+    del xf, wgf, wuf, wdf
+    hs = []
+    y_bmm = meg.expert_ffn_bmm(x, wu, wd, wg, mid=lambda h: hs.append(h) or h)
+    before = meg.moe_expert_ffn.launches
+    h = meg.moe_expert_gemm_gate_up(x, wg, wu, fill, rows)
+    y = meg.moe_expert_ffn(x, wg, wu, wd, fill, rows)
+    torch.cuda.synchronize()
+    assert meg.moe_expert_ffn.launches - before == 3
+    assert h.dtype == y.dtype == torch.bfloat16
+    rows_h, rows_y = filled.expand_as(h), filled.expand_as(y)
+    assert bool(rows_y.any()) == (int(fill.sum()) > 0)
+    if rows_y.any():
+        for got, want, bmm, r in ((h, h_want, hs[0], rows_h),
+                                  (y, y_want, y_bmm, rows_y)):
+            assert torch.isfinite(got[r]).all()
+            err = _rel_l2_rows(got, want, r)
+            assert err <= BF16_EXPERT_TOL
+            assert err <= _rel_l2_rows(bmm, want, r)
+    y_down = meg.moe_expert_gemm_down(h, wd, fill, rows)
+    assert torch.equal(y_down[rows_y], y[rows_y])
+    nan = float("nan")
+    h_p = meg.moe_expert_gemm_gate_up(x.masked_fill(~filled, nan), wg, wu,
+                                      fill, rows)
+    y_p = meg.moe_expert_gemm_down(h.masked_fill(~filled, nan), wd, fill,
+                                   rows)
+    torch.cuda.synchronize()
+    assert torch.equal(h_p[rows_h], h[rows_h])
+    assert torch.equal(y_p[rows_y], y[rows_y])
+
+
+def test_moe_expert_gemm_bf16_graph_replays_equal_eager_on_card(cuda):
+    """The bf16 pair at the decode shape captured in one CUDA graph and
+    replayed with the fills and the buffer changed between replays (four
+    seeded routings, no row, every row): each replay's filled rows equal
+    an eager call's on the same inputs bit for bit."""
+    from repro_torch.kernels import moe_expert_gemm as meg
+    e, cap, d, f = 128, 8, 2048, 768
+    fills = [_bf16_expert_fill("route:8", e, cap, d, seed=s)
+             for s in range(4)]
+    fills += [_bf16_expert_fill("all:0", e, cap, d, 0),
+              _bf16_expert_fill("all:8", e, cap, d, 0)]
+    inputs = [_bf16_expert_inputs(e, cap, d, f, fl, seed=20 + i)
+              for i, fl in enumerate(fills)]
+    x = inputs[0][0].clone()
+    _, wg, wu, wd, _ = inputs[0]
+    fill = fills[0].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        meg.moe_expert_ffn(x, wg, wu, wd, fill, e * cap)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = meg.moe_expert_ffn(x, wg, wu, wd, fill, e * cap)
+    for fl, (xi, _, _, _, filled) in zip(fills, inputs):
+        fill.copy_(fl)
+        x.copy_(xi)
+        graph.replay()
+        want = meg.moe_expert_ffn(xi, wg, wu, wd, fl, e * cap)
+        torch.cuda.synchronize()
+        rows = filled.expand_as(out)
+        assert torch.equal(out[rows], want[rows])
+
+
 # ---------------------------------------------------------------------------
 # training: gradients through K7 and K8
 # ---------------------------------------------------------------------------
@@ -1108,8 +1254,9 @@ def test_per_row_decode_graph_matches_eager_on_card(cuda):
     ``Model.decode_step`` (a CUDA graph captured at the first step and
     replayed) and through the eager ``transformer.decode_step`` on a
     copy of the cache: the same logits and caches, bit for bit (the
-    same kernels on the same tensors), and the expert products' counter
-    moved once a layer a step; then the per-slot ``Engine``, in
+    same kernels on the same tensors), and the expert kernels launched
+    twice a layer a step, never ``torch.bmm``; then the per-slot
+    ``Engine``, in
     float32 (TF32 off: a pool of three and a request alone take
     products of other shapes), serves each request the tokens it gets
     alone."""
@@ -1134,11 +1281,12 @@ def test_per_row_decode_graph_matches_eager_on_card(cuda):
     pos = torch.tensor([5, 9, 13], device=cuda)
     ffn = meg.moe_expert_ffn
     for _ in range(4):
-        n0 = ffn.bmm_fallbacks
+        n0, l0 = ffn.bmm_fallbacks, ffn.launches
         got, _ = model.decode_step(params, graphed, tok, pos)
         # the eager first step and each replay: every layer's bf16
-        # expert products once
-        assert ffn.bmm_fallbacks - n0 == cfg.n_layers
+        # expert products on the two bf16 kernels, none on torch.bmm
+        assert ffn.bmm_fallbacks - n0 == 0
+        assert ffn.launches - l0 == 2 * cfg.n_layers
         want, _ = tf.decode_step(params, eager, tok, pos, cfg)
         assert torch.equal(got, want)
         tok, pos = want.argmax(-1)[:, None], pos + 1

@@ -116,14 +116,35 @@ def test_layer_reads_no_row_past_the_fill(monkeypatch, kernels_on_cpu):
     ``_moe_layer_flat`` is finite and equal to today's ``torch.bmm``
     path (tolerance 0: the combine gathers only filled rows, and those
     are the same products)."""
-    cfg = _cfg()
+    _layer_with_poisoned_rows(monkeypatch, _cfg(), torch.float32)
+
+
+def test_bf16_layer_reads_no_row_past_the_fill(monkeypatch, kernels_on_cpu):
+    """The same for an LM's bf16 MoE MLP, which now takes the ragged
+    products too."""
+    _layer_with_poisoned_rows(monkeypatch, _cfg(dtype="bfloat16"),
+                              torch.bfloat16)
+
+
+def test_bf16_grid_bound():
+    """The bound a bf16 launch sizes its grid by: the caller's, at most
+    every row of the buffer, every row without one."""
+    assert meg._rows(None, 4, 8) == 32
+    assert meg._rows(100, 4, 8) == 32
+    assert meg._rows(10, 4, 8) == 10
+    assert meg._rows(0, 4, 8) == 0
+
+
+def _layer_with_poisoned_rows(monkeypatch, cfg, dtype):
     p, x = _layer_inputs(cfg)
+    p = {k: v.to(dtype) if k != "router" else v for k, v in p.items()}
+    x = x.to(dtype)
     plain = meg.moe_expert_ffn
     seen = []
 
-    def poisoned(xb, wg, wu, wd, fill):
+    def poisoned(xb, wg, wu, wd, fill, rows=None):
         seen.append(fill)
-        y = plain(xb, wg, wu, wd, fill)
+        y = plain(xb, wg, wu, wd, fill, rows)
         return y.masked_fill(~_filled(fill, y.shape[1]), float("nan"))
     poisoned.launches = poisoned.bmm_fallbacks = 0
     monkeypatch.setattr(meg, "moe_expert_ffn", poisoned)
@@ -161,6 +182,49 @@ def test_float32_inference_takes_the_ragged_products(monkeypatch,
     assert calls == [1] and meg.moe_expert_ffn.launches == launches
 
 
+#: the LM's MoE MLP in inference: bf16, capacity-bounded or dropless
+#: (capacity factor experts / top-k, as the published Qwen3-30B-A3B)
+INFERENCE = {
+    "bf16": lambda: _cfg(dtype="bfloat16"),
+    "bf16-dropless": lambda: _cfg(dtype="bfloat16").with_overrides(
+        moe=dataclasses.replace(_cfg().moe, capacity_factor=4.0)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(INFERENCE))
+def test_inference_takes_the_ragged_products(case, monkeypatch,
+                                             kernels_on_cpu):
+    """An LM's bf16 MoE MLP in inference (no gradient, gated SiLU, flat,
+    no mesh) on the kernels' device takes the ragged products, given the
+    fills and their bound n · k, and counts no fallback; on the CPU
+    ``moe_expert_ffn`` runs its plain version and launches nothing (the
+    card's two launches a call are counted in ``tests/test_torch_cuda.py``
+    and ``chip_smoke.py``)."""
+    cfg = INFERENCE[case]()
+    p, x = _layer_inputs(cfg)
+    p = {k: v.bfloat16() if k != "router" else v for k, v in p.items()}
+    x = x.bfloat16()
+    seen = []
+    real = meg.moe_expert_ffn
+
+    def ffn(xb, wg, wu, wd, fill, rows=None):
+        seen.append((xb.dtype, tuple(xb.shape), int(fill.sum()), rows))
+        return real(xb, wg, wu, wd, fill, rows)
+    ffn.launches = ffn.bmm_fallbacks = 0
+    monkeypatch.setattr(meg, "moe_expert_ffn", ffn)
+    launches = real.launches
+    with torch.no_grad():
+        before = real.bmm_fallbacks
+        out, _ = moe.moe_layer(p, x, cfg)
+        assert real.bmm_fallbacks == before
+    n, k, e = 32, cfg.moe.top_k, cfg.moe.num_experts
+    cap = moe._capacity(cfg.moe.capacity_factor, n, k, e)
+    assert seen == [(torch.bfloat16, (e, cap, cfg.d_model),
+                     seen[0][2], n * k)]
+    assert seen[0][2] <= n * k <= e * cap
+    assert real.launches == launches and out.dtype == torch.bfloat16
+
+
 def _grad_call(cfg, p, x):
     leaves = {k: v.requires_grad_() for k, v in p.items()}
     out, aux = moe.moe_layer(leaves, x, cfg)
@@ -168,7 +232,8 @@ def _grad_call(cfg, p, x):
 
 
 CASES = {
-    "bf16": lambda: (_cfg(dtype="bfloat16"), torch.bfloat16, None),
+    # bf16 training: inference in bf16 takes the kernels (above)
+    "bf16": lambda: (_cfg(dtype="bfloat16"), torch.bfloat16, _grad_call),
     "grad": lambda: (_cfg(), torch.float32, _grad_call),
     "grouped": lambda: (_cfg(moe_groups=2), torch.float32, None),
     "ungated": lambda: (_cfg(mlp_gated=False), torch.float32, None),
@@ -190,7 +255,7 @@ def test_cpu_calls_keep_bmm_and_count():
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_other_calls_keep_bmm_and_count(case, kernels_on_cpu):
-    """bf16 (the LM zoo's MoE MLP), a gradient, the grouped path, an
+    """A gradient (training, in float32 or bf16), the grouped path, an
     ungated or non-SiLU FFN: ``torch.bmm``, counted in
     ``bmm_fallbacks`` (once a call; the grouped path calls the products
     once)."""
@@ -224,25 +289,49 @@ def test_mesh_calls_keep_bmm_and_count(monkeypatch, kernels_on_cpu):
 
 
 def test_takes_only_plain_float32_inference(monkeypatch):
+    """The rule: plain float32, or plain bf16 (every tensor the same), on
+    the kernels' device, no gradient, gated SiLU, widths whole 16-byte
+    vectors (4 float32, 8 bf16)."""
     gen = torch.Generator().manual_seed(0)
     p = _weights(gen)
     x = torch.randn(E, CAP, D, generator=gen)
+    bf = {k: v.bfloat16() for k, v in p.items()}
     assert not meg.takes(x, p, "silu")          # the CPU
+    assert not meg.takes(x.bfloat16(), bf, "silu")
     monkeypatch.setattr(meg, "DEVICE", "cpu")
     assert meg.takes(x, p, "silu")
     assert not meg.takes(x, p, "gelu")
     assert not meg.takes(x, {k: v for k, v in p.items() if k != "w_gate"},
                          "silu")
     assert not meg.takes(x.bfloat16(), p, "silu")
+    assert not meg.takes(x, bf, "silu")
+    assert not meg.takes(x.half(), {k: v.half() for k, v in p.items()},
+                         "silu")
     assert not meg.takes(x.to("meta"), {k: v.to("meta") for k, v in
                                         p.items()}, "silu")
     w = dict(p, w_up=p["w_up"].clone().requires_grad_())
     assert not meg.takes(x, w, "silu")
     with torch.no_grad():
         assert meg.takes(x, w, "silu")
+    # bf16: D = 12 and FF = 20 are whole float4s but not whole 8s
+    assert not meg.takes(x.bfloat16(), bf, "silu")
+    x16 = torch.randn(E, CAP, 16, generator=gen).bfloat16()
+    w16 = {"w_gate": torch.randn(E, 16, 24).bfloat16(),
+           "w_up": torch.randn(E, 16, 24).bfloat16(),
+           "w_down": torch.randn(E, 24, 16).bfloat16()}
+    assert meg.takes(x16, w16, "silu")
+    assert not meg.takes(x16, dict(w16, w_up=w16["w_up"][..., :20]),
+                         "silu")
+    assert not meg.takes(x16, dict(w16, w_down=w16["w_down"].float()),
+                         "silu")
+    g16 = dict(w16, w_gate=w16["w_gate"].clone().requires_grad_())
+    assert not meg.takes(x16, g16, "silu")
+    with torch.no_grad():
+        assert meg.takes(x16, g16, "silu")
 
 
-@pytest.mark.parametrize("bad", ["shape", "fill", "dtype", "device"])
+@pytest.mark.parametrize("bad", ["shape", "fill", "dtype", "device",
+                                 "mixed", "half"])
 def test_wrapper_refuses_what_the_kernels_do_not_take(bad):
     gen = torch.Generator().manual_seed(0)
     p = _weights(gen)
@@ -254,6 +343,11 @@ def test_wrapper_refuses_what_the_kernels_do_not_take(bad):
         fill = fill.int()
     elif bad == "dtype":
         x = x.double()
+    elif bad == "mixed":
+        x = x.bfloat16()
+    elif bad == "half":
+        x = x.half()
+        p = {k: v.half() for k, v in p.items()}
     else:
         x = x.to("meta")
     with pytest.raises(ValueError):
