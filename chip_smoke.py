@@ -5,7 +5,8 @@ on one CUDA card.  Run from the root of a checkout:
     python3 chip_smoke.py
 
 It imports nothing of JAX or of the JAX package ``repro`` and runs, in
-order (any mismatch or error raises and the exit code is non-zero):
+order (any mismatch or error raises and the exit code is non-zero; "the
+counter" is ``kernels.build.LAUNCHES``, every kernel launch by C entry):
 
 1. environment: the card's name and power limit as nvidia-smi reports
    them, the torch, CUDA and nvcc versions, and the int32 CUDA-core rate
@@ -60,8 +61,8 @@ order (any mismatch or error raises and the exit code is non-zero):
    resource sweep (timed), a ``v5e`` plan, ``validate_plan`` on the
    card (bit-exact, MAPE < 2 % on every budgeted resource), the same
    for a plan with layers pinned to conv2, conv1 and conv3, then 16
-   requests served from the ``v5e`` plan; the counters are set to 0
-   just before and read just after, and each plane kernel must have
+   requests served from the ``v5e`` plan; the launches it adds to
+   the counter are read, and each plane kernel must have
    launched; then, counted apart, ``cnn_forward_loop`` of the pinned
    plan on a few seeded images with seeded weights (K4 at P = 1, one
    launch per Conv2 plane, K3 and K5), equal to ``cnn_forward_ref`` on
@@ -73,7 +74,7 @@ order (any mismatch or error raises and the exit code is non-zero):
    golden images and 64 seeded samples of each plan interleaved through
    ``await submit(..., plan_id=...)``, every output equal to
    ``cnn_forward_ref`` on the CPU and the golden ones to the JAX golden,
-   with the counters set to 0 just before and read just after (each
+   with the launches they add to the counter read (each
    plan's forwards launch SERVE_LAUNCHES per forward, never K1's or K2's
    int32 entries); ``should_abort`` returning True at its second poll
    raises ``DispatchAborted`` with exactly layer 0's launch counted; then
@@ -97,7 +98,7 @@ order (any mismatch or error raises and the exit code is non-zero):
    ``plan_aware`` with ``--drain``; each run with ``served + expired +
    shed == requests``, nothing failed, refused or lost, one drain where
    asked, every layer of every forward launching its entry once (the
-   counters set to 0 just before and read just after), and the served
+   launches it adds to the counter read), and the served
    outputs of every 16th request equal to ``cnn_forward_ref`` on the CPU
    with the plan and weights of the worker that served it; then
    recovery: a fresh ``StoreRoot`` holding the pinned plan under
@@ -134,7 +135,7 @@ order (any mismatch or error raises and the exit code is non-zero):
    and depth for Llama-3.2-3B (28 layers) and Mamba-2-1.3B (48 layers),
    bf16, random weights from a seeded generator: 8 requests, prompt 512,
    32 new tokens, max_batch 4, after one untimed warm-up pass, with the
-   counters set to 0 before each arch and read after (K8 once per
+   launches each arch adds to the counter read (K8 once per
    attention layer per prefill and never in decode, K7 three times per
    Mamba layer per prefill and per decode step); prefill ms per
    request, decode ms per step, tokens/s, and a profiler trace of 16
@@ -149,8 +150,9 @@ order (any mismatch or error raises and the exit code is non-zero):
    reference's input to it within atol 1e-4 and relative L2 1e-5 of the
    reference's output; then served through ``CNNEngine`` and through one
    ``AsyncCNNGateway`` that also serves ``quickstart_v5e`` on its golden
-   weights (the counters set to 0 just before and read just after: K1's
-   requantizing entry launched for the CNN plan), in the golden's
+   weights (the launches they add to the counter read: K1's
+   requantizing entry for the CNN plan, the float32 expert kernels
+   twice a layer a forward for the MoE plan), in the golden's
    dispatches, every served block equal to the port's own layer trace of
    that dispatch and within atol 1e-4 (relative L2 1e-5) of the golden,
    or moved off it only by a fake-quant rounding flip (a value on a
@@ -177,8 +179,8 @@ order (any mismatch or error raises and the exit code is non-zero):
    ``torch.cuda.set_sync_debug_mode("error")``, ms per step at bucket 16
    by CUDA events, device ms, ops and idle share per step from a
    profiler trace, tokens/s through ``CNNEngine`` for 256 blocks (the
-   expert kernels launched twice a layer a forward, ``bmm_fallbacks``
-   0), each with the card's name and power limit;
+   expert kernels launched twice a layer a forward, no
+   ``expert_ffn_bmm`` fallback), each with the card's name and power limit;
 12. the rest of the LM zoo (K7, K8): Qwen3-MoE, Llama-4-Maverick,
    Jamba, Whisper and Pixtral at ``smoke_config`` in float32 against the
    JAX reference's golden file ``src/repro_torch/golden/
@@ -186,15 +188,16 @@ order (any mismatch or error raises and the exit code is non-zero):
    engine tokens equal, two identical prompts in one wave among them; K8
    once per attention layer per prefill and never in decode, K7 three
    times per Jamba Mamba layer per call; the float32 MoE MLP of the MoE
-   archs on the expert kernels, ``moe_expert_ffn.launches`` set to 0
-   just before each arch and above 0 just after, 0 for the others); then
+   archs on the expert kernels, launched by each MoE arch and by no
+   other); then
    Qwen3-MoE-30B-A3B at full
    width and depth (48 layers, 61 GB of bf16 weights from a seeded
    generator) through the launcher's ``serve_lm`` with phase 10's
-   traffic after a one-layer warm-up, the counters set to 0 just before
-   and read just after (K8 48 times per prefill, never in decode; the
-   bf16 MoE MLP's products on the bf16 expert kernels: launches counted,
-   no call in ``bmm_fallbacks``):
+   traffic after a one-layer warm-up, the launches it adds to the
+   counter read (K8 48 times per prefill, never in decode; the
+   bf16 MoE MLP's products on the bf16 expert kernels: launched twice
+   an MoE layer a prefill and a graphed decode step, no
+   ``expert_ffn_bmm`` fallback):
    prefill ms per request, decode ms per step, tokens/s, peak memory, a
    profiler trace of 16 decode steps (device ms, idle share, device ops
    per step, against the step's byte bound), one decode step under
@@ -221,7 +224,7 @@ order (any mismatch or error raises and the exit code is non-zero):
    layers) and Mamba-2-1.3B (48 layers) at full width and depth, bf16,
    seeded weights drawn on the card: 4 steps of ``make_train_step`` over
    ``batch_at`` batches of 2 x 2048 tokens with float32 states, the
-   counters set to 0 just before and read just after (every loss
+   launches they add to the counter read (every loss
    finite, every parameter leaf with a non-zero gradient at step 1, K8
    or K7 launched the derived count every step), ms per step, tokens/s,
    peak memory, a profiler trace of one step (device ms, idle share,
@@ -247,8 +250,8 @@ order (any mismatch or error raises and the exit code is non-zero):
    DTensor trees placed by ``ShardingRules`` (the weights wrapped, not
    copied) against one unsharded step from the same state (loss within
    1e-3 relative, every parameter leaf within relative L2 1e-3, K8
-   launched 56 times through ``local_map``, the counters set to 0 just
-   before and read just after), peak memory, then a prefill of 2 x 512
+   launched 56 times through ``local_map``, the launches it adds to
+   the counter read), peak memory, then a prefill of 2 x 512
    tokens and 8 greedy decode steps with the cache placed by
    ``cache_spec`` against the unsharded path (logits within 5e-2
    relative L2, tokens equal); (c) ``core.hloscan.analyze_step`` of the
@@ -863,10 +866,16 @@ def _comparer(entries, wrappers):
 
 
 def kernel_entry(name):
-    return {"name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": REPLACES[name], "max_abs_err": 0, "equal": True,
-            "cases": [], "launches": 0}
+    """The kernels line's entry of a kernel that replaces a TPU kernel
+    (``REPLACES``), which the kernel phases compare with its plain
+    version and time; the launches alone of any other (the expert
+    kernels, which phase 11 compares and times in its own numbers)."""
+    e = {"name": name, "route": "cuda",
+         "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+         "replaces": REPLACES.get(name), "launches": 0}
+    if name in REPLACES:
+        e.update(max_abs_err=0, equal=True, cases=[])
+    return e
 
 
 def check_plane_kernels():
@@ -1079,46 +1088,34 @@ def serve_profile(stem, step_ms):
 LAUNCHES = {}
 
 
-def counters():
-    """Every kernel wrapper of the port, by entry name."""
-    from repro_torch.blocks import base
-    from repro_torch.kernels import conv1d, conv2d, flash_attention
-    return {"conv1_layer": conv2d.conv1_layer,
-            "fused_dot_layer": base.fused_dot_layer,
-            "fused_dot_layer_requant": base.fused_dot_layer_requant,
-            "packed_dot_layer": base.packed_dot_layer,
-            "packed_dot_layer_requant": base.packed_dot_layer_requant,
-            "conv2_planes": conv2d.conv2_planes,
-            "conv3_planes": conv2d.conv3_planes,
-            "conv4_planes": conv2d.conv4_planes,
-            "causal_conv1d": conv1d.causal_conv1d,
-            "flash_attention": flash_attention.flash_attention}
-
-
 def drive(entries, label, want, fn):
-    """Run one path ``fn()`` with every launch counter set to 0 just
-    before it and read just after; fail if an entry in ``want`` was not
-    launched; add the counts to the kernels' entries (a kernel's
-    launches are those of all its entries, ``launches_by_entry`` keeps
-    them apart).  Returns what ``fn`` returns."""
-    from repro_torch.kernels import build
-    fns = counters()
-    for f in fns.values():
-        f.launches = 0
+    """Run one path ``fn()`` and read what it added to the launch
+    counter (``kernels.build.LAUNCHES``) under every C entry and under
+    ``expert_ffn_bmm``, into ``LAUNCHES[label]``; fail if an entry in
+    ``want`` was not launched; add the entries' counts to the kernels'
+    entries (a kernel's launches are those of all its entries,
+    ``launches_by_entry`` keeps them apart).  The counts are differences
+    across ``fn()``: the same as setting the counter to 0 before it and
+    reading it after, without clearing what readers around the path
+    have counted.  Returns what ``fn`` returns."""
+    from repro_torch.kernels import build, moe_expert_gemm as meg
+    before = build.LAUNCHES.copy()
     out = fn()
-    launches = {k: f.launches for k, f in fns.items()}
+    launches = {k: build.LAUNCHES[k] - before[k]
+                for k in (*build.ENTRIES, meg.BMM_FALLBACK)}
     missing = sorted(k for k in want if launches[k] < 1)
     if missing:
         raise AssertionError(f"{label}: {missing} never launched "
                              f"({launches})")
     LAUNCHES[label] = launches
-    for k, v in launches.items():
+    for k in build.ENTRIES:
+        v = launches[k]
         kern = build.library_of(k)
         e = entries.setdefault(kern, kernel_entry(kern))
         e["launches"] += v
         by_path = e.setdefault("launches_by_path", {})
         by_path[label] = by_path.get(label, 0) + v
-        if kern in build.ENTRIES.values():
+        if list(build.ENTRIES.values()).count(kern) > 1:
             e.setdefault("launches_by_entry", {}).setdefault(label, {})[k] = v
     print(f"[{label}] launches {launches}")
     return out
@@ -1281,13 +1278,15 @@ def pinned_loop(entries, plan):
     return res
 
 
-def _check_serve_launches(label, forwards):
+def _check_serve_launches(label, forwards, also=None):
     """Each plan's forwards (``{stem: n}``) launched their entries
-    SERVE_LAUNCHES times per forward, and nothing else."""
+    SERVE_LAUNCHES times per forward, each entry of ``also``
+    (``{entry: n}``, another plan's) n times more, and nothing else."""
     got = LAUNCHES[label]
     for k, v in got.items():
-        want = sum(SERVE_LAUNCHES[stem].get(k, 0) * n
-                   for stem, n in forwards.items())
+        want = (also or {}).get(k, 0) + sum(
+            SERVE_LAUNCHES[stem].get(k, 0) * n
+            for stem, n in forwards.items())
         if v != want:
             raise AssertionError(
                 f"{label}: {k} launched {v} times in {forwards} forwards, "
@@ -2174,11 +2173,10 @@ def lm_golden(entries, path, archs, label):
     K7_PER_MAMBA_LAYER times per Mamba layer per call; the expert
     kernels (a float32 gated SiLU MoE MLP in inference takes them)
     launched by every arch with MoE layers and by no other
-    (``moe_expert_ffn.launches``, set to 0 just before)."""
+    (``drive``'s counts of the expert entries)."""
     import numpy as np
     from repro_torch.configs import smoke_config
-    from repro_torch.kernels import conv1d, flash_attention as fa
-    from repro_torch.kernels import moe_expert_gemm as meg
+    from repro_torch.kernels import build, moe_expert_gemm as meg
     from repro_torch.models import build_model
     from repro_torch.serve import Engine, Request, ServeConfig
 
@@ -2200,10 +2198,11 @@ def lm_golden(entries, path, archs, label):
             | ({"causal_conv1d"} if mamba else set())
 
         def counted(fn):
-            k7, k8 = conv1d.causal_conv1d.launches, fa.flash_attention.launches
+            k7 = build.LAUNCHES["causal_conv1d"]
+            k8 = build.LAUNCHES["flash_attention"]
             res = fn()
-            return res, (fa.flash_attention.launches - k8,
-                         conv1d.causal_conv1d.launches - k7)
+            return res, (build.LAUNCHES["flash_attention"] - k8,
+                         build.LAUNCHES["causal_conv1d"] - k7)
 
         def run():
             errs, calls = [], []
@@ -2234,14 +2233,13 @@ def lm_golden(entries, path, archs, label):
                 tokens = [r.out_tokens for r in reqs]
             return float(max(errs)), calls, tokens
 
-        meg.moe_expert_ffn.launches = 0
         err, calls, tokens = drive(entries, f"{label} {arch}", want, run)
-        experts = meg.moe_expert_ffn.launches
+        experts = sum(LAUNCHES[f"{label} {arch}"][e] for e in meg.ENTRIES)
         if (experts > 0) != (cfg.moe is not None):
             raise AssertionError(f"{arch}: the expert kernels launched "
                                  f"{experts} times (MoE layers: "
                                  f"{cfg.moe is not None})")
-        print(f"[{label} {arch}] moe_expert_ffn.launches {experts}")
+        print(f"[{label} {arch}] expert kernel launches {experts}")
         for kind, (k8, k7) in calls:
             if k8 != (attn if kind == "prefill" else 0) \
                     or k7 != K7_PER_MAMBA_LAYER * mamba:
@@ -2310,12 +2308,12 @@ def lm_decode_profile(model, params, prompts):
 
 def serve_full_width(entries, cfg, label, warm_up):
     """The launcher's ``serve_lm`` for ``cfg`` at full width, bf16, with
-    the LM traffic, after ``warm_up()`` (untimed), the counters set to 0
-    just before and read just after under ``label``: K8 once per
+    the LM traffic, after ``warm_up()`` (untimed), the launches it adds
+    to the counter read under ``label``: K8 once per
     attention layer per prefill and never in decode, K7
     K7_PER_MAMBA_LAYER times per Mamba layer per prefill and decode step
     (the per-slot Engine's steps are CUDA-graph replays, which
-    ``DecodeGraph`` adds to the counters); every request served whole.
+    ``DecodeGraph`` adds to the counter); every request served whole.
     Returns (the numbers: times, tokens/s, peak memory, the decode
     step's byte bound and a decode profile; the engine, which holds the
     model and its weights)."""
@@ -2627,7 +2625,12 @@ def moe_golden_on_card(entries, smi):
         raise AssertionError(f"{label}: MoE dispatches {hits}, want the "
                              f"golden's buckets 1, 2, 4, 1")
     cnn_forwards = sum(gw.plans["cnn"].compiled.bucket_hits.values())
-    _check_serve_launches(label, {UNPINNED: cnn_forwards})
+    # the MoE plan's float32 expert products: each entry once a layer a
+    # forward, no ``expert_ffn_bmm``
+    moe_launches = gw.plans["moe"].compiled.num_layers * sum(hits.values())
+    _check_serve_launches(label, {UNPINNED: cnn_forwards},
+                          {"moe_expert_gemm_gate_up": moe_launches,
+                           "moe_expert_gemm_down": moe_launches})
     if not np.array_equal(np.stack(cnn_out), gy):
         raise AssertionError(f"{label}: the CNN outputs differ from the JAX "
                              f"reference's golden")
@@ -2739,16 +2742,16 @@ def moe_expert_kernels(smi):
                                      ws["w_gate"],
                                      mid=lambda h: hs.append(h) or h)
         h_plain = hs[0]
-        n0 = meg.moe_expert_ffn.launches
+        n0 = meg.launches()
         h = meg.moe_expert_gemm_gate_up(x, ws["w_gate"], ws["w_up"], fill)
         y = meg.moe_expert_gemm_down(h_plain.masked_fill(empty, float("nan")),
                                      ws["w_down"], fill)
         y2 = meg.moe_expert_ffn(x, ws["w_gate"], ws["w_up"], ws["w_down"],
                                 fill)
         torch.cuda.synchronize()
-        if meg.moe_expert_ffn.launches - n0 != 4:
+        if meg.launches() - n0 != 4:
             raise AssertionError(f"moe expert kernels {label}: "
-                                 f"{meg.moe_expert_ffn.launches - n0} "
+                                 f"{meg.launches() - n0} "
                                  f"launches, not 4")
         errs = {}
         for name, got, want in (("gate_up", h, h_plain), ("down", y, y_plain),
@@ -2870,12 +2873,12 @@ def moe_expert_kernels_bf16(smi):
             * torch.bmm(xf, ws["w_up"].float())
         y32 = torch.bmm(h32, ws["w_down"].float())
         del xf, h32
-        n0 = meg.moe_expert_ffn.launches
+        n0 = meg.launches()
         y = kernels()
         torch.cuda.synchronize()
-        if meg.moe_expert_ffn.launches - n0 != 2:
+        if meg.launches() - n0 != 2:
             raise AssertionError(f"moe expert kernels bf16 {label}: "
-                                 f"{meg.moe_expert_ffn.launches - n0} "
+                                 f"{meg.launches() - n0} "
                                  f"launches, not 2")
         r = filled.expand_as(y)
         err, err_bmm = rel_l2(y, y32, r), rel_l2(bmm(), y32, r)
@@ -3047,22 +3050,21 @@ def moe_full_width(entries, smi):
         t0 = time.perf_counter()
         engine.run(reqs)
         return reqs, time.perf_counter() - t0
-    ffn = meg.moe_expert_ffn
-    counts0 = (ffn.launches, ffn.bmm_fallbacks,
-               sum(compiled.bucket_hits.values()))
+    forwards0 = sum(compiled.bucket_hits.values())
     reqs, dt = drive(entries, "moe full width engine", set(), serve_blocks)
-    expert_calls = {"launches": ffn.launches - counts0[0],
-                    "bmm_fallbacks": ffn.bmm_fallbacks - counts0[1],
+    got = LAUNCHES["moe full width engine"]
+    expert_calls = {"launches": sum(got[e] for e in meg.ENTRIES),
+                    "bmm_fallbacks": got[meg.BMM_FALLBACK],
                     "forwards": sum(compiled.bucket_hits.values())
-                    - counts0[2], "layers": compiled.num_layers}
+                    - forwards0, "layers": compiled.num_layers}
     if expert_calls["bmm_fallbacks"] or expert_calls["launches"] != \
             2 * expert_calls["layers"] * expert_calls["forwards"]:
         raise AssertionError(f"moe full width: the expert kernels did not "
                              f"run twice a layer a forward: {expert_calls}")
     print(f"[moe full width] expert products over {expert_calls['forwards']}"
           f" forwards of {expert_calls['layers']} layers: "
-          f"moe_expert_ffn.launches {expert_calls['launches']}, "
-          f"bmm_fallbacks {expert_calls['bmm_fallbacks']}")
+          f"expert kernel launches {expert_calls['launches']}, "
+          f"bmm fallbacks {expert_calls['bmm_fallbacks']}")
     outs = np.stack([r.output for r in reqs])
     if not (all(r.done for r in reqs) and np.isfinite(outs).all()):
         raise AssertionError("moe full width: a block was not served whole")
@@ -3099,6 +3101,7 @@ def zoo_full_width(entries, smi):
     numbers."""
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.configs.base import MOE
     from repro_torch.kernels import moe_expert_gemm as meg
     from repro_torch.launch import serve
     from repro_torch.models import moe as moe_mod
@@ -3109,23 +3112,25 @@ def zoo_full_width(entries, smi):
         serve.serve_lm(cfg.with_overrides(n_layers=1),
                        requests=LM_MAX_BATCH, prompt_len=LM_PROMPT,
                        new_tokens=2, max_batch=LM_MAX_BATCH, device="cuda")
-    ffn = meg.moe_expert_ffn
-    counts0 = (ffn.launches, ffn.bmm_fallbacks)
-    res, engine = serve_full_width(
-        entries, cfg, f"lm zoo full width {ZOO_FULL_ARCH}", warm_up)
+    label = f"lm zoo full width {ZOO_FULL_ARCH}"
+    res, engine = serve_full_width(entries, cfg, label, warm_up)
     res["card"] = smi
     # the bf16 MoE MLP in inference runs the bf16 expert kernels: no
-    # torch.bmm
-    res["expert_calls"] = {"launches": ffn.launches - counts0[0],
-                           "bmm_fallbacks": ffn.bmm_fallbacks - counts0[1]}
+    # torch.bmm (the served path's own counts, without the warm-up's)
+    got = LAUNCHES[label]
+    res["expert_calls"] = {"launches": sum(got[e] for e in meg.ENTRIES),
+                           "bmm_fallbacks": got[meg.BMM_FALLBACK]}
+    moe_layers = sum(s.mlp == MOE for s in cfg.layer_cycle) * cfg.n_cycles
     if res["expert_calls"]["bmm_fallbacks"] or \
-            not res["expert_calls"]["launches"]:
+            res["expert_calls"]["launches"] != 2 * moe_layers * (
+                res["prefills"] + res["decode_steps"]):
         raise AssertionError(f"lm zoo full width: the bf16 MoE MLP did not "
-                             f"run the expert kernels alone: "
-                             f"{res['expert_calls']}")
+                             f"run the expert kernels alone, twice an MoE "
+                             f"layer ({moe_layers}) a prefill and a graphed "
+                             f"decode step: {res['expert_calls']}")
     print(f"[lm zoo full width] {ZOO_FULL_ARCH} expert products: "
-          f"moe_expert_ffn.launches {res['expert_calls']['launches']}, "
-          f"bmm_fallbacks {res['expert_calls']['bmm_fallbacks']}")
+          f"expert kernel launches {res['expert_calls']['launches']}, "
+          f"bmm fallbacks {res['expert_calls']['bmm_fallbacks']}")
     model, params = engine.model, engine.params
 
     # one decode step of the pool enqueues its work without a host sync
@@ -3337,7 +3342,7 @@ def train_golden(entries):
     import numpy as np
     import torch
     from repro_torch.configs import smoke_config
-    from repro_torch.kernels import conv1d, flash_attention as fa
+    from repro_torch.kernels import build
     from repro_torch.models import build_model
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.optim.adamw import global_norm
@@ -3359,13 +3364,13 @@ def train_golden(entries):
             counts = []
 
             def counted(fn):
-                k8, k7 = (fa.flash_attention.launches,
-                          conv1d.causal_conv1d.launches)
+                k8, k7 = (build.LAUNCHES["flash_attention"],
+                          build.LAUNCHES["causal_conv1d"])
                 res = fn()
                 counts.append({"flash_attention":
-                               fa.flash_attention.launches - k8,
+                               build.LAUNCHES["flash_attention"] - k8,
                                "causal_conv1d":
-                               conv1d.causal_conv1d.launches - k7})
+                               build.LAUNCHES["causal_conv1d"] - k7})
                 return res
             params = _lm_golden_params(golden, arch, cfg, "cuda")
             loss, metrics, grads = counted(
@@ -3470,8 +3475,8 @@ def train_full_width(entries, smi):
     """Phase 13 (b): each of ``TRAIN_FULL_ARCHS`` at full width and depth,
     bf16, seeded weights drawn on the card: TRAIN_STEPS steps of
     ``make_train_step`` (float32 AdamW states, lr TRAIN_LR) over
-    ``batch_at`` batches of TRAIN_BATCH x TRAIN_SEQ, the counters set to 0
-    just before and read just after: every loss finite, every parameter
+    ``batch_at`` batches of TRAIN_BATCH x TRAIN_SEQ, the launches they add
+    to the counter read: every loss finite, every parameter
     leaf's gradient non-zero at step 1 (the float32 first moment after
     one step is (1 - b1) x the clipped gradient), K8/K7 launched
     ``_per_step_launches`` times a step; ms per step by CUDA events,
@@ -3484,7 +3489,7 @@ def train_full_width(entries, smi):
     from repro_torch import tree
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, batch_at
-    from repro_torch.kernels import conv1d, flash_attention as fa
+    from repro_torch.kernels import build
     from repro_torch.models import build_model
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.train.step import make_train_step
@@ -3513,8 +3518,8 @@ def train_full_width(entries, smi):
             rows = []
             for k in range(TRAIN_STEPS):
                 batch = batch_at(data, k)
-                before = (fa.flash_attention.launches,
-                          conv1d.causal_conv1d.launches)
+                before = (build.LAUNCHES["flash_attention"],
+                          build.LAUNCHES["causal_conv1d"])
                 start = torch.cuda.Event(enable_timing=True)
                 stop = torch.cuda.Event(enable_timing=True)
                 start.record()
@@ -3526,9 +3531,11 @@ def train_full_width(entries, smi):
                        "grad_norm": float(m["grad_norm"]),
                        "launches": {
                            "flash_attention":
-                               fa.flash_attention.launches - before[0],
+                               build.LAUNCHES["flash_attention"]
+                               - before[0],
                            "causal_conv1d":
-                               conv1d.causal_conv1d.launches - before[1]}}
+                               build.LAUNCHES["causal_conv1d"]
+                               - before[1]}}
                 if k == 0:
                     norms = {n: float(v.norm())
                              for n, v in tree.flatten(state["m"]).items()}
@@ -3882,8 +3889,8 @@ def shard_cnn(entries):
     """Phase 14 (a): the launcher's ``--shard`` path on both committed
     plans with the golden weights over ``cnn_data_mesh()``: outputs equal
     to the JAX golden and to the unsharded engine, each layer's entry
-    launched once per forward per device, the counters set to 0 just
-    before each plan and read just after."""
+    launched once per forward per device, the launches each plan adds
+    to the counter read."""
     import numpy as np
     from repro_torch.launch import serve
     from repro_torch.parallel.sharding import cnn_data_mesh
@@ -4233,7 +4240,12 @@ def main() -> int:
                 "shape", "launches_by_path", "cases")
         extra = ("instantiations", "requant", "requant_cases",
                  "launches_by_entry")
-        line = {"kernels": [{k: e[k] for k in keys}
+        # the expert kernels' checks and times are phase 11's (``moe``):
+        # their entries hold their launches alone
+        counted = ("name", "route", "source", "replaces", "launches",
+                   "launches_by_path")
+        line = {"kernels": [{k: e[k] for k in (keys if e["replaces"]
+                                               else counted)}
                             | {k: e[k] for k in extra if k in e}
                             for e in entries.values()],
                 "images_per_s": rates, "ms_per_step": step_ms,

@@ -296,11 +296,8 @@ def fused_dot_layer(x, w, *, data_bits: int, coeff_bits: int):
         return fused_dot_layer_plain(x, w, data_bits=data_bits,
                                      coeff_bits=coeff_bits)
     x, w = conv2d.narrow_to_dot_dtype(x, w, data_bits, coeff_bits)
-    return conv2d.launch_layer(fused_dot_layer, _FUSED_ARGTYPES, x, w,
+    return conv2d.launch_layer("fused_dot_layer", _FUSED_ARGTYPES, x, w,
                                w.shape[0], w.numel())
-
-
-fused_dot_layer.launches = 0
 
 
 def fused_dot_layer_requant_plain(x, w, *, data_bits: int, coeff_bits: int,
@@ -328,13 +325,9 @@ def fused_dot_layer_requant(x, w, *, data_bits: int, coeff_bits: int,
             x, w, data_bits=data_bits, coeff_bits=coeff_bits, shift=shift,
             out_bits=out_bits)
     x, w = conv2d.narrow_to_dot_dtype(x, w, data_bits, coeff_bits)
-    return conv2d.launch_layer(fused_dot_layer_requant,
-                               _FUSED_REQUANT_ARGTYPES, x, w, w.shape[0],
-                               w.numel(), min(shift, 31), out_bits,
-                               out_bits=out_bits)
-
-
-fused_dot_layer_requant.launches = 0
+    return conv2d.launch_layer(name, _FUSED_REQUANT_ARGTYPES, x, w,
+                               w.shape[0], w.numel(), min(shift, 31),
+                               out_bits, out_bits=out_bits)
 
 
 def _check_pack_shift(data_bits: int, coeff_bits: int) -> int:
@@ -388,12 +381,9 @@ def packed_dot_layer(x, w, *, data_bits: int, coeff_bits: int):
     if x.device.type == "cpu":
         return packed_dot_layer_plain(x, w, data_bits=data_bits,
                                       coeff_bits=coeff_bits)
-    return conv2d.launch_layer(packed_dot_layer, _PACKED_ARGTYPES, x, w,
+    return conv2d.launch_layer("packed_dot_layer", _PACKED_ARGTYPES, x, w,
                                w.shape[0], (w.shape[0] + 1) // 2 * w.shape[1]
                                * 9, s)
-
-
-packed_dot_layer.launches = 0
 
 
 def packed_dot_layer_requant_plain(x, w, *, data_bits: int, coeff_bits: int,
@@ -420,10 +410,7 @@ def packed_dot_layer_requant(x, w, *, data_bits: int, coeff_bits: int,
         return packed_dot_layer_requant_plain(
             x, w, data_bits=data_bits, coeff_bits=coeff_bits, shift=shift,
             out_bits=out_bits)
-    return conv2d.launch_layer(packed_dot_layer_requant,
-                               _PACKED_REQUANT_ARGTYPES, x, w, w.shape[0],
-                               (w.shape[0] + 1) // 2 * w.shape[1] * 9, s,
-                               min(shift, 31), out_bits, out_bits=out_bits)
-
-
-packed_dot_layer_requant.launches = 0
+    return conv2d.launch_layer(name, _PACKED_REQUANT_ARGTYPES, x, w,
+                               w.shape[0], (w.shape[0] + 1) // 2 * w.shape[1]
+                               * 9, s, min(shift, 31), out_bits,
+                               out_bits=out_bits)

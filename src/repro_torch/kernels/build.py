@@ -21,13 +21,17 @@ later call, whatever directory it names, launches that binding;
 ``bound_paths`` says where each came from.  ``nvcc_runs`` counts the
 compiler runs this process started.
 
-Every C entry ``repro_<name>`` launches on the stream it is given and
-returns ``cudaGetLastError()``; ``check`` raises on anything but 0.
+Every C entry ``repro_<entry>`` launches on the stream it is given and
+returns ``cudaGetLastError()``.  Every kernel wrapper launches through
+``launch``, which refuses what no kernel takes, passes the current
+stream, raises on an error (``check``), counts the launch in
+``LAUNCHES`` (by entry name) and reports its work to ``WORK_SINKS``.
 Nothing here runs at import: the CPU tests import every module.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -38,18 +42,25 @@ import threading
 from pathlib import Path
 from typing import Callable, Dict, Iterable, Optional, Sequence, Union
 
+import torch
+
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("conv1_layer", "fused_dot_layer", "packed_dot_layer",
-           "conv2_planes", "conv3_planes", "conv4_planes", "causal_conv1d",
-           "flash_attention", "moe_expert_gemm", "moe_expert_gemm_bf16")
-# C entries beyond ``repro_<library>``, by the library that holds them
-ENTRIES = {"fused_dot_layer_requant": "fused_dot_layer",
+# every C entry ``repro_<entry>``, by the library (``csrc/<library>.cu``)
+# that holds it
+ENTRIES = {"conv1_layer": "conv1_layer",
+           "fused_dot_layer": "fused_dot_layer",
+           "fused_dot_layer_requant": "fused_dot_layer",
+           "packed_dot_layer": "packed_dot_layer",
            "packed_dot_layer_requant": "packed_dot_layer",
+           "conv2_planes": "conv2_planes", "conv3_planes": "conv3_planes",
+           "conv4_planes": "conv4_planes", "causal_conv1d": "causal_conv1d",
+           "flash_attention": "flash_attention",
            "moe_expert_gemm_gate_up": "moe_expert_gemm",
            "moe_expert_gemm_down": "moe_expert_gemm",
            "moe_expert_gemm_bf16_gate_up": "moe_expert_gemm_bf16",
            "moe_expert_gemm_bf16_down": "moe_expert_gemm_bf16"}
+KERNELS = tuple(dict.fromkeys(ENTRIES.values()))      # the libraries
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -226,7 +237,7 @@ def bound_paths() -> Dict[str, Path]:
 
 def library_of(entry: str) -> str:
     """The kernel library that holds the C entry ``repro_<entry>``."""
-    return ENTRIES.get(entry, entry)
+    return ENTRIES[entry]
 
 
 def kernel(entry: str, argtypes: Sequence) -> Callable[..., int]:
@@ -257,6 +268,44 @@ def check(entry: str, err: int) -> None:
         msg = _libs[library_of(entry)].repro_error_string(err).decode()
         raise RuntimeError(f"{entry}: CUDA launch failed with error {err} "
                            f"({msg})")
+
+
+# the launches of each C entry in this process, by entry name; also the
+# expert FFNs that ``models.moe`` ran as ``torch.bmm`` instead
+# (``kernels.moe_expert_gemm.BMM_FALLBACK``)
+LAUNCHES: collections.Counter = collections.Counter()
+
+
+def launch(entry: str, argtypes: Sequence, tensors: Sequence[torch.Tensor],
+           out: torch.Tensor, *args, work=None) -> torch.Tensor:
+    """Launch the C entry ``repro_<entry>`` with ``args`` (its arguments
+    in its order, the stream left out) on the current stream, count it
+    in ``LAUNCHES`` and return ``out``, which the kernel writes.
+    ``tensors`` are those it reads: each must be contiguous, and the
+    first on the current card (the wrapper has checked that the others
+    share its device).  An empty ``out`` has nothing to compute: nothing
+    launches or counts.  ``work``, (FLOPs, bytes), is reported to
+    ``WORK_SINKS``.  Raises on what the kernel does not take and on any
+    launch error; never falls back.  The stream is read as its raw
+    handle with one C call (no ``torch.cuda.Stream`` is built), so a
+    launch under ``torch.cuda.stream(s)`` runs on ``s``."""
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{entry}: every tensor must be contiguous")
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{entry}: no kernel for a tensor on {dev}")
+    if dev.index != torch.cuda.current_device():
+        raise ValueError(f"{entry}: a tensor is on {dev} but the current "
+                         f"device is cuda:{torch.cuda.current_device()}")
+    if out.numel() == 0:
+        return out
+    check(entry, kernel(entry, argtypes)(
+        *args, torch._C._cuda_getCurrentRawStream(dev.index)))
+    LAUNCHES[entry] += 1
+    if work is not None:
+        report_work(entry, *work)
+    return out
 
 
 # the counters that a launch reports its work to (``core.hloscan``'s

@@ -9,7 +9,8 @@ state (the trailing K-1 inputs of the previous call) where one is
 given, so the same kernel serves prefill at any length and decode at one
 position.  A wrapper runs the plain version for a tensor on the CPU and
 launches the kernel (``csrc/causal_conv1d.cu``) for a tensor on the card
-(or raises); ``causal_conv1d.launches`` counts the launches.
+(or raises) through ``build.launch``, which counts it in
+``build.LAUNCHES["causal_conv1d"]`` and reports its work.
 
 Gradients: where grad is enabled and an input requires it, the call
 goes through ``_CausalConv1d``, a ``torch.autograd.Function`` whose
@@ -120,36 +121,16 @@ def _forward(x: torch.Tensor, w: torch.Tensor,
     """The launch on the card (counted), the plain version on the CPU."""
     if x.device.type == "cpu":
         return causal_conv1d_plain(x, w, state)
-    if x.device.type != "cuda":
-        raise ValueError(f"causal_conv1d: no kernel for a tensor on "
-                         f"{x.device}")
     k = w.shape[0]
     if k > MAX_K:
         raise ValueError(f"causal_conv1d: the kernel takes K <= {MAX_K}, "
                          f"got {k}")
     tensors = (x, w) if state is None else (x, w, state)
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("causal_conv1d: x, w and state must be contiguous")
-    if x.device.index != torch.cuda.current_device():
-        raise ValueError(
-            f"causal_conv1d: x is on {x.device} but the current device is "
-            f"cuda:{torch.cuda.current_device()}")
     b, s, c = x.shape
     y = torch.empty((b, s, c), dtype=torch.float32, device=x.device)
-    if y.numel() == 0:
-        return y
-    fn = build.kernel("causal_conv1d", _ARGTYPES)
-    err = fn(x.data_ptr(), w.data_ptr(),
-             None if state is None or state.numel() == 0
-             else state.data_ptr(),
-             y.data_ptr(), int(x.dtype == torch.bfloat16), b, s, c, k,
-             torch.cuda.current_stream(x.device).cuda_stream)
-    build.check("causal_conv1d", err)
-    causal_conv1d.launches += 1
-    build.report_work("causal_conv1d", 2 * b * s * c * k,
-                      sum(t.numel() * t.element_size()
-                          for t in tensors + (y,)))
-    return y
-
-
-causal_conv1d.launches = 0
+    return build.launch(
+        "causal_conv1d", _ARGTYPES, tensors, y, x.data_ptr(), w.data_ptr(),
+        None if state is None or state.numel() == 0 else state.data_ptr(),
+        y.data_ptr(), int(x.dtype == torch.bfloat16), b, s, c, k,
+        work=(2 * b * s * c * k, sum(t.numel() * t.element_size()
+                                     for t in tensors + (y,))))

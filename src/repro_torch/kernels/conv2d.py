@@ -17,8 +17,9 @@ bodies row tile by row tile (``conv1_tile`` … ``conv4_tile`` over
 ``run_plane_tiles``'s grid), in the reference's dtypes, and contract
 with ``int_dot``; ``core.census`` counts the same tile bodies.  A
 wrapper runs the plain version for a tensor on the CPU and launches the
-CUDA kernel for a tensor on the card (or raises); ``<wrapper>.launches``
-counts the launches.
+CUDA kernel for a tensor on the card (or raises) through
+``build.launch``, which counts it in ``build.LAUNCHES`` under the C
+entry's name (the wrapper's).
 """
 
 from __future__ import annotations
@@ -159,33 +160,15 @@ def check_layer_operands(name: str, x: torch.Tensor, w: torch.Tensor
     _check_containers(name, x, w)
 
 
-def _check_launch(name: str, x: torch.Tensor, w: torch.Tensor) -> None:
-    """What every kernel launch needs of its operands: on the current
-    card, contiguous."""
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for a tensor on {x.device}")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError(f"{name}: x and w must be contiguous")
-    if x.device.index != torch.cuda.current_device():
-        raise ValueError(
-            f"{name}: x is on {x.device} but the current device is "
-            f"cuda:{torch.cuda.current_device()}")
-
-
-def launch_layer(wrapper, argtypes, x: torch.Tensor, w: torch.Tensor,
+def launch_layer(name: str, argtypes, x: torch.Tensor, w: torch.Tensor,
                  out_channels: int, weight_words: int, *extra: int,
                  out_bits: int | None = None) -> torch.Tensor:
-    """Launch the C entry of ``wrapper`` (named as it is) on x's device
-    and current stream, add one to ``wrapper.launches``, and return the
-    int32 accumulator (N, out_channels, H, W) — or, for a requantizing
-    entry (``out_bits`` given), the channels-last activations (N, H, W,
-    out_channels) in ``container_dtype(out_bits)``.  Raises on what the
-    kernel does not take and on any launch error; never falls back.  An
-    empty output has nothing to compute and launches nothing.  The stream
-    is read as ``launch_planes`` reads it: its raw handle, with one C
-    call."""
-    name = wrapper.__name__
-    _check_launch(name, x, w)
+    """Launch the C entry ``name`` on x (``build.launch``) and return
+    the int32 accumulator (N, out_channels, H, W) — or, for a
+    requantizing entry (``out_bits`` given), the channels-last
+    activations (N, H, W, out_channels) in ``container_dtype(out_bits)``.
+    Raises on what the kernel does not take (beyond ``build.launch``'s
+    checks, weights past the shared-memory budget)."""
     if 4 * weight_words > SMEM_WEIGHT_BYTES:
         raise ValueError(
             f"{name}: {weight_words} staged weight words exceed the "
@@ -197,16 +180,11 @@ def launch_layer(wrapper, argtypes, x: torch.Tensor, w: torch.Tensor,
     else:
         out = torch.empty((n, h, wd, out_channels),
                           dtype=container_dtype(out_bits), device=x.device)
-    if out.numel() == 0:
-        return out
-    fn = build.kernel(name, argtypes)
-    err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-             int(x.dtype == torch.int16), int(w.dtype == torch.int16),
-             n, h, wd, ic, w.shape[0], *extra,
-             torch._C._cuda_getCurrentRawStream(x.device.index))
-    build.check(name, err)
-    wrapper.launches += 1
-    return out
+    return build.launch(name, argtypes, (x, w), out, x.data_ptr(),
+                        w.data_ptr(), out.data_ptr(),
+                        int(x.dtype == torch.int16),
+                        int(w.dtype == torch.int16), n, h, wd, ic,
+                        w.shape[0], *extra)
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -253,11 +231,8 @@ def conv1_layer(x: torch.Tensor, w: torch.Tensor, *, data_bits: int,
         return conv1_layer_plain(x, w, data_bits=data_bits,
                                  coeff_bits=coeff_bits)
     acc16 = int(_acc_dtype(data_bits, coeff_bits) == torch.int16)
-    return launch_layer(conv1_layer, _CONV1_ARGTYPES, x, w, w.shape[0],
+    return launch_layer("conv1_layer", _CONV1_ARGTYPES, x, w, w.shape[0],
                         w.numel(), coeff_bits, acc16)
-
-
-conv1_layer.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -376,33 +351,18 @@ def check_plane_operands(name: str, x: torch.Tensor, w: torch.Tensor,
     _check_containers(name, x, w)
 
 
-def launch_planes(wrapper, argtypes, x: torch.Tensor, w: torch.Tensor,
+def launch_planes(name: str, argtypes, x: torch.Tensor, w: torch.Tensor,
                   n_out: int, *extra: int) -> torch.Tensor:
-    """Launch the plane kernel of ``wrapper`` on x's device and current
-    stream, add one to ``wrapper.launches``, and return the int32
-    output (P, H, W), or (P, 2, H, W) for two outputs.  Raises on what
-    the kernel does not take and on any launch error; never falls back.
-    An empty output launches nothing.  The per-plane path makes one such
-    call per plane, so the host path is kept short: the bound entry is
-    looked up without a lock, and the current stream's raw handle is
-    read with one C call on each launch (no ``torch.cuda.Stream`` is
-    built), which keeps a launch under ``torch.cuda.stream(s)`` on
-    ``s``."""
-    name = wrapper.__name__
-    _check_launch(name, x, w)
+    """Launch the plane kernel ``name`` on x (``build.launch``) and
+    return the int32 output (P, H, W), or (P, 2, H, W) for two
+    outputs.  The per-plane path makes one such call per plane."""
     p, h, wd = x.shape
     shape = (p, 2, h, wd) if n_out == 2 else (p, h, wd)
     out = torch.empty(shape, dtype=torch.int32, device=x.device)
-    if out.numel() == 0:
-        return out
-    fn = build.kernel(name, argtypes)
-    err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-             int(x.dtype == torch.int16), int(w.dtype == torch.int16),
-             p, h, wd, *extra,
-             torch._C._cuda_getCurrentRawStream(x.device.index))
-    build.check(name, err)
-    wrapper.launches += 1
-    return out
+    return build.launch(name, argtypes, (x, w), out, x.data_ptr(),
+                        w.data_ptr(), out.data_ptr(),
+                        int(x.dtype == torch.int16),
+                        int(w.dtype == torch.int16), p, h, wd, *extra)
 
 
 # x, w, out, x_int16, w_int16, p, h, w, stream
@@ -429,10 +389,7 @@ def conv2_planes(x, w, *, data_bits: int, coeff_bits: int) -> torch.Tensor:
         return conv2_planes_plain(x, w, data_bits=data_bits,
                                   coeff_bits=coeff_bits)
     x, w = narrow_to_dot_dtype(x, w, data_bits, coeff_bits)
-    return launch_planes(conv2_planes, _PLANE_ARGTYPES, x, w, 1)
-
-
-conv2_planes.launches = 0
+    return launch_planes("conv2_planes", _PLANE_ARGTYPES, x, w, 1)
 
 
 def conv3_planes_plain(x, w, *, data_bits: int,
@@ -458,10 +415,7 @@ def conv3_planes(x, w, *, data_bits: int, coeff_bits: int) -> torch.Tensor:
         shift = _pack_shift(data_bits, coeff_bits)
     else:
         x, w = narrow_to_dot_dtype(x, w, data_bits, coeff_bits)
-    return launch_planes(conv3_planes, _CONV3_ARGTYPES, x, w, 2, shift)
-
-
-conv3_planes.launches = 0
+    return launch_planes("conv3_planes", _CONV3_ARGTYPES, x, w, 2, shift)
 
 
 def conv4_planes_plain(x, w, *, data_bits: int,
@@ -482,7 +436,4 @@ def conv4_planes(x, w, *, data_bits: int, coeff_bits: int) -> torch.Tensor:
         return conv4_planes_plain(x, w, data_bits=data_bits,
                                   coeff_bits=coeff_bits)
     x, w = narrow_to_dot_dtype(x, w, data_bits, coeff_bits)
-    return launch_planes(conv4_planes, _PLANE_ARGTYPES, x, w, 2)
-
-
-conv4_planes.launches = 0
+    return launch_planes("conv4_planes", _PLANE_ARGTYPES, x, w, 2)

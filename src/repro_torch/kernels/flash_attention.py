@@ -11,7 +11,8 @@ any S and T: rows past S are not computed and keys past T are masked.
 
 A wrapper runs the plain version for a tensor on the CPU and launches
 the kernel (``csrc/flash_attention.cu``) for a tensor on the card (or
-raises); ``flash_attention.launches`` counts the launches.  The kernel
+raises) through ``build.launch``, which counts it in
+``build.LAUNCHES["flash_attention"]`` and reports its work.  The kernel
 has two instantiations behind one entry, chosen by the dtype: bfloat16
 runs on the tensor cores (P·V as P_hi·V + P_lo·V, so P keeps about 16
 bits), float32 on the CUDA cores.
@@ -169,36 +170,17 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The launch on the card (counted), the plain version on the CPU."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for a tensor on "
-                         f"{q.device}")
     b, s, h, d = q.shape
     t, kh = k.shape[1], k.shape[2]
     if d > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: the kernel takes head dims up "
                          f"to {MAX_HEAD_DIM}, got {d}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention: q, k and v must be contiguous")
-    if q.device.index != torch.cuda.current_device():
-        raise ValueError(
-            f"flash_attention: q is on {q.device} but the current device "
-            f"is cuda:{torch.cuda.current_device()}")
     out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    fn = build.kernel("flash_attention", _ARGTYPES)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             int(q.dtype == torch.bfloat16), b, s, t, h, kh, d,
-             1.0 / (d ** 0.5), int(causal),
-             torch.cuda.current_stream(q.device).cuda_stream)
-    build.check("flash_attention", err)
-    flash_attention.launches += 1
-    # the causal half of 4·B·H·S·T·D
-    build.report_work("flash_attention",
-                      (2 if causal else 4) * b * h * s * t * d,
-                      sum(x.numel() * x.element_size()
-                          for x in (q, k, v, out)))
-    return out
-
-
-flash_attention.launches = 0
+    # the work: the causal half of 4·B·H·S·T·D
+    return build.launch(
+        "flash_attention", _ARGTYPES, (q, k, v), out, q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        int(q.dtype == torch.bfloat16), b, s, t, h, kh, d, 1.0 / (d ** 0.5),
+        int(causal), work=((2 if causal else 4) * b * h * s * t * d,
+                           sum(x.numel() * x.element_size()
+                               for x in (q, k, v, out))))

@@ -31,10 +31,11 @@ Rows at or past an expert's fill are unspecified: the kernels do not
 write them (the outputs are ``torch.empty``), and whoever reads the
 outputs reads only filled rows.
 
-``moe_expert_ffn.launches`` counts the kernels' launches (two a call) and
-``moe_expert_ffn.bmm_fallbacks`` the expert FFNs that ``models.moe`` ran
-as ``expert_ffn_bmm`` instead (``takes`` says which calls the kernels
-take).
+Each launch goes through ``build.launch``, which counts it in
+``build.LAUNCHES`` under its C entry's name (``ENTRIES``: two a call);
+``models.moe`` counts there, under ``BMM_FALLBACK``, the expert FFNs it
+ran as ``expert_ffn_bmm`` instead (``takes`` says which calls the
+kernels take).
 """
 
 from __future__ import annotations
@@ -52,16 +53,31 @@ DEVICE = "cuda"
 # tensor types the kernels take (a DTensor, a subclass, does not pass)
 _PLAIN = (torch.Tensor, torch.nn.Parameter)
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# x, w_gate, w_up, fill, h, e, cap, d, f, stream
-_GATE_UP_ARGTYPES = (_P,) * 5 + (_I,) * 4 + (_P,)
-# h, w_down, fill, y, e, cap, f, d, stream
-_DOWN_ARGTYPES = (_P,) * 4 + (_I,) * 4 + (_P,)
-# the bf16 entries: the same, with rows before the stream
-_BF16_GATE_UP_ARGTYPES = (_P,) * 5 + (_I,) * 5 + (_P,)
-_BF16_DOWN_ARGTYPES = (_P,) * 4 + (_I,) * 5 + (_P,)
+# each product's C entry and argument types, by dtype: x, w_gate, w_up,
+# fill, h, e, cap, d, f, stream; h, w_down, fill, y, e, cap, f, d,
+# stream; the bf16 entries take rows before the stream
+_GATE_UP = {torch.float32: ("moe_expert_gemm_gate_up",
+                            (_P,) * 5 + (_I,) * 4 + (_P,)),
+            torch.bfloat16: ("moe_expert_gemm_bf16_gate_up",
+                             (_P,) * 5 + (_I,) * 5 + (_P,))}
+_DOWN = {torch.float32: ("moe_expert_gemm_down",
+                         (_P,) * 4 + (_I,) * 4 + (_P,)),
+         torch.bfloat16: ("moe_expert_gemm_bf16_down",
+                          (_P,) * 4 + (_I,) * 5 + (_P,))}
+# the C entries ``moe_expert_ffn`` launches, and the key of
+# ``build.LAUNCHES`` that counts the calls run as ``expert_ffn_bmm``
+ENTRIES = tuple(e for t in (_GATE_UP, _DOWN) for e, _ in t.values())
+BMM_FALLBACK = "expert_ffn_bmm"
+
 # the dtypes the kernels take, and the elements of the 16 bytes that each
 # row's width must be whole multiples of (float4 loads; TMA's strides)
 _VECTOR = {torch.float32: 4, torch.bfloat16: 8}
+
+
+def launches() -> int:
+    """The expert kernels' launches in this process: ``build.LAUNCHES``
+    summed over ``ENTRIES``."""
+    return sum(build.LAUNCHES[e] for e in ENTRIES)
 
 
 def expert_ffn_bmm(x, w_up, w_down, w_gate=None, act=F.silu,
@@ -136,22 +152,14 @@ def moe_expert_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
         rows)
 
 
-def _launchable(name: str, *tensors) -> None:
-    x = tensors[0]
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for a tensor on {x.device}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name}: every tensor must be contiguous")
-    if x.device.index != torch.cuda.current_device():
-        raise ValueError(f"{name}: x is on {x.device} but the current "
-                         f"device is cuda:{torch.cuda.current_device()}")
+def _check_vectors(name: str, x, *weights) -> None:
     vec = _VECTOR.get(x.dtype)
-    if vec is None or any(t.dtype != x.dtype for t in tensors[1:-1]):
+    if vec is None or any(t.dtype != x.dtype for t in weights):
         raise ValueError(f"{name}: float32 or bf16 tensors of one dtype, "
-                         f"got {[t.dtype for t in tensors[:-1]]}")
-    if x.shape[-1] % vec or tensors[1].shape[-1] % vec:
+                         f"got {[t.dtype for t in (x, *weights)]}")
+    if x.shape[-1] % vec or weights[0].shape[-1] % vec:
         raise ValueError(f"{name}: the widths must be multiples of {vec}, "
-                         f"got {x.shape[-1]} and {tensors[1].shape[-1]}")
+                         f"got {x.shape[-1]} and {weights[0].shape[-1]}")
 
 
 def _rows(rows: Optional[int], e: int, cap: int) -> int:
@@ -164,58 +172,34 @@ def moe_expert_gemm_gate_up(x, w_gate, w_up, fill,
                             rows: Optional[int] = None) -> torch.Tensor:
     """silu(x · W_gate) * (x · W_up) on each expert's filled rows, in
     x's dtype: one launch on the card (counted)."""
-    _launchable("moe_expert_gemm_gate_up", x, w_gate, w_up, fill)
+    _check_vectors("moe_expert_gemm_gate_up", x, w_gate, w_up)
     e, cap, d = x.shape
     f = w_up.shape[-1]
     h = torch.empty((e, cap, f), dtype=x.dtype, device=x.device)
-    if h.numel() == 0:
-        return h
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    ptrs = (x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
-            fill.data_ptr(), h.data_ptr())
-    if x.dtype == torch.bfloat16:
-        entry = "moe_expert_gemm_bf16_gate_up"
-        err = build.kernel(entry, _BF16_GATE_UP_ARGTYPES)(
-            *ptrs, e, cap, d, f, _rows(rows, e, cap), stream)
-    else:
-        entry = "moe_expert_gemm_gate_up"
-        err = build.kernel(entry, _GATE_UP_ARGTYPES)(*ptrs, e, cap, d, f,
-                                                     stream)
-    build.check(entry, err)
-    moe_expert_ffn.launches += 1
+    entry, argtypes = _GATE_UP[x.dtype]
+    bound = () if x.dtype == torch.float32 else (_rows(rows, e, cap),)
     # the work of the whole capacity, an upper bound: the fills stay on
     # the device, so the host cannot count the filled rows
-    build.report_work(entry, 2 * 2 * e * cap * d * f, x.element_size()
-                      * (e * cap * d + 2 * e * d * f + e * cap * f))
-    return h
+    return build.launch(
+        entry, argtypes, (x, w_gate, w_up, fill), h, x.data_ptr(),
+        w_gate.data_ptr(), w_up.data_ptr(), fill.data_ptr(), h.data_ptr(),
+        e, cap, d, f, *bound,
+        work=(2 * 2 * e * cap * d * f, x.element_size()
+              * (e * cap * d + 2 * e * d * f + e * cap * f)))
 
 
 def moe_expert_gemm_down(h, w_down, fill,
                          rows: Optional[int] = None) -> torch.Tensor:
     """h · W_down on each expert's filled rows, in h's dtype: one launch
     on the card (counted)."""
-    _launchable("moe_expert_gemm_down", h, w_down, fill)
+    _check_vectors("moe_expert_gemm_down", h, w_down)
     e, cap, f = h.shape
     d = w_down.shape[-1]
     y = torch.empty((e, cap, d), dtype=h.dtype, device=h.device)
-    if y.numel() == 0:
-        return y
-    stream = torch.cuda.current_stream(h.device).cuda_stream
-    ptrs = (h.data_ptr(), w_down.data_ptr(), fill.data_ptr(), y.data_ptr())
-    if h.dtype == torch.bfloat16:
-        entry = "moe_expert_gemm_bf16_down"
-        err = build.kernel(entry, _BF16_DOWN_ARGTYPES)(
-            *ptrs, e, cap, f, d, _rows(rows, e, cap), stream)
-    else:
-        entry = "moe_expert_gemm_down"
-        err = build.kernel(entry, _DOWN_ARGTYPES)(*ptrs, e, cap, f, d,
-                                                  stream)
-    build.check(entry, err)
-    moe_expert_ffn.launches += 1
-    build.report_work(entry, 2 * e * cap * d * f, h.element_size()
-                      * (e * cap * f + e * f * d + e * cap * d))
-    return y
-
-
-moe_expert_ffn.launches = 0
-moe_expert_ffn.bmm_fallbacks = 0
+    entry, argtypes = _DOWN[h.dtype]
+    bound = () if h.dtype == torch.float32 else (_rows(rows, e, cap),)
+    return build.launch(
+        entry, argtypes, (h, w_down, fill), y, h.data_ptr(),
+        w_down.data_ptr(), fill.data_ptr(), y.data_ptr(), e, cap, f, d,
+        *bound, work=(2 * e * cap * d * f, h.element_size()
+                      * (e * cap * f + e * f * d + e * cap * d)))

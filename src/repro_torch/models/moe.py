@@ -16,7 +16,8 @@ each expert's fill (its count clamped to the capacity, on the device)
 bounds the rows computed, two launches of the dtype's kernels.  Every
 other call (the CPU, training, the grouped path, DTensors, an ungated
 or non-SiLU FFN) runs three batched products (``torch.bmm``) over every
-row.
+row, counted in ``kernels.build.LAUNCHES`` under
+``moe_expert_gemm.BMM_FALLBACK``.
 
 Parity with the reference, which runs this path in float32:
 
@@ -70,7 +71,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import moe_expert_gemm as meg
+from repro_torch.kernels import build, moe_expert_gemm as meg
 from repro_torch.models.layers import _act, dense_init
 from repro_torch.ops import spans
 from repro_torch.parallel.sharding import (P, axis_sizes, mesh_of,
@@ -235,12 +236,12 @@ def _expert_ffn(expert_in: torch.Tensor, p, act: str,
     Every other call runs ``expert_ffn_bmm``: three (two ungated)
     batched products over every row (DTensor products under a mesh, the
     hidden activations hinted to experts over ``model``), counted in
-    ``moe_expert_ffn.bmm_fallbacks``."""
+    ``build.LAUNCHES[meg.BMM_FALLBACK]``."""
     with spans.span("moe.experts"):
         if fill is not None and meg.takes(expert_in, p, act):
             return meg.moe_expert_ffn(expert_in, p["w_gate"], p["w_up"],
                                       p["w_down"], fill, rows)
-        meg.moe_expert_ffn.bmm_fallbacks += 1
+        build.LAUNCHES[meg.BMM_FALLBACK] += 1
         return meg.expert_ffn_bmm(
             expert_in, p["w_up"], p["w_down"], p.get("w_gate"),
             act=lambda t: _act(t, act),

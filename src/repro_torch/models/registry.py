@@ -20,10 +20,10 @@ ones: an eager step of a large model is bound by the host's launches
 The first call runs the step eagerly and captures it after; a replay
 runs the captured kernels on the same tensors, so it returns what the
 eager step would; its logits live in the graph's memory and the next
-step overwrites them.  A kernel wrapper's counters (``.launches``,
-``.bmm_fallbacks``) move by what the step's Python adds; the capture's
-additions are taken back and added again at every replay, so they count
-the kernels that ran.  The graph is launched through libcuda holding
+step overwrites them.  The launch counter ``kernels.build.LAUNCHES``
+moves by what the step's Python adds; what the capture added is taken
+back and added again at every replay, so it counts the kernels that ran,
+whichever they are.  The graph is launched through libcuda holding
 the interpreter's lock (``_launch``): ``torch.profiler`` starts and
 stops while holding it, and a stop whose activity flush met a graph
 launch on another thread deadlocked (an H100 host, 2 of 7 traced runs
@@ -40,6 +40,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.build import LAUNCHES
 from repro_torch.models import transformer as tf
 
 META = torch.device("meta")
@@ -63,17 +64,6 @@ def _launch(graph: "torch.cuda.CUDAGraph") -> None:
         raise RuntimeError(f"cuGraphLaunch failed with CUresult {rc}")
 
 
-def _counters():
-    """The kernel wrappers' counters a decode step can move, as
-    (wrapper, attribute)."""
-    from repro_torch.kernels import conv1d, flash_attention
-    from repro_torch.kernels import moe_expert_gemm as meg
-    return ((conv1d.causal_conv1d, "launches"),
-            (flash_attention.flash_attention, "launches"),
-            (meg.moe_expert_ffn, "launches"),
-            (meg.moe_expert_ffn, "bmm_fallbacks"))
-
-
 class DecodeGraph:
     """``transformer.decode_step`` over one (params, cache) pair with
     static token and position inputs: the first step eager, then
@@ -94,16 +84,13 @@ class DecodeGraph:
         torch.cuda.current_stream(token.device).wait_stream(side)
         self.first.record_stream(torch.cuda.current_stream(token.device))
         # a capture records and runs nothing: its counts are a replay's
-        counters = _counters()
-        before = [getattr(f, a) for f, a in counters]
+        before = LAUNCHES.copy()
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
             self.logits, _ = tf.decode_step(params, cache, self.token,
                                             self.pos, cfg)
-        self.counts = []
-        for (f, a), n in zip(counters, before):
-            self.counts.append((f, a, getattr(f, a) - n))
-            setattr(f, a, n)
+        self.counts = LAUNCHES - before
+        LAUNCHES.subtract(self.counts)
 
     def serves(self, params, cache, token) -> bool:
         return (params is self.params and cache is self.cache
@@ -116,8 +103,7 @@ class DecodeGraph:
         self.token.copy_(token)
         self.pos.copy_(pos)
         _launch(self.graph)
-        for f, a, n in self.counts:
-            setattr(f, a, getattr(f, a) + n)
+        LAUNCHES.update(self.counts)
         return self.logits
 
 

@@ -529,8 +529,8 @@ class AsyncCNNGateway(SlotPool):
         # dispatches never timeslice the same device, which on a
         # host-shared device starves one dispatch into a straggler
         # whose latency the rate estimator then reads as lost capacity.
-        # The kernel wrappers' ``.launches`` counters are bumped from
-        # this thread without a lock; with one worker no two bumps race.
+        # ``kernels.build.LAUNCHES`` is bumped from this thread without
+        # a lock; with one worker no two bumps race.
         self._executor = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="repro-serve")
         self._loop: Optional[asyncio.AbstractEventLoop] = None

@@ -37,6 +37,8 @@ from repro_torch.core import allocate, cnn, deploy, synth
 from repro_torch.configs.paper_conv import REDUCED_SWEEP
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.kernels import conv1d, conv2d, flash_attention as fa
+from repro_torch.kernels import moe_expert_gemm as meg
+from repro_torch.kernels.build import LAUNCHES
 from repro_torch.models import build_model
 from repro_torch.serve import (AsyncCNNGateway, AsyncServeConfig, CNNEngine,
                                CNNServeConfig, Engine, ImageRequest, Request,
@@ -53,6 +55,8 @@ LM_GOLDEN = SRC / "golden" / "lm_reference.npz"
 MOE_GOLDEN = SRC / "golden" / "moe_reference.npz"
 LM_ZOO_GOLDEN = SRC / "golden" / "lm_zoo_reference.npz"
 TRAIN_GOLDEN = SRC / "golden" / "train_reference.npz"
+
+
 
 KERNELS = {"conv1_layer": (conv2d.conv1_layer, conv2d.conv1_layer_plain),
            "fused_dot_layer": (base.fused_dot_layer,
@@ -74,10 +78,10 @@ def test_kernel_matches_plain_on_card(cuda, name, d, c):
     rng = np.random.default_rng(300 * d + c)
     x, w = operands(rng, (3, 16, 40, 40), 7, d, c)
     xc, wc = torch.from_numpy(x).to(cuda), torch.from_numpy(w).to(cuda)
-    before = kernel.launches
+    before = LAUNCHES[kernel.__name__]
     y = kernel(xc, wc, data_bits=d, coeff_bits=c)
     torch.cuda.synchronize()
-    assert kernel.launches == before + 1
+    assert LAUNCHES[kernel.__name__] == before + 1
     assert y.dtype == torch.int32 and tuple(y.shape) == (3, 7, 16, 40)
     assert torch.equal(y, plain(xc, wc, data_bits=d, coeff_bits=c))
     assert np.array_equal(y.cpu().numpy(), plain(
@@ -100,11 +104,11 @@ def check_requant(name, xc, wc, d, c):
     kernel, plain = REQUANT[name]
     n, h, wd, _ = xc.shape
     for shift in SHIFTS:
-        before = kernel.launches
+        before = LAUNCHES[kernel.__name__]
         y = kernel(xc, wc, data_bits=d, coeff_bits=c, shift=shift,
                    out_bits=d)
         torch.cuda.synchronize()
-        assert kernel.launches == before + 1
+        assert LAUNCHES[kernel.__name__] == before + 1
         assert y.dtype == conv2d.container_dtype(d)
         assert tuple(y.shape) == (n, h, wd, wc.shape[0])
         assert torch.equal(y, plain(xc, wc, data_bits=d, coeff_bits=c,
@@ -219,10 +223,10 @@ def test_requant_entry_refuses_what_it_does_not_take(cuda, name):
     with pytest.raises(ValueError, match="shared-memory"):
         kernel(torch.zeros((1, 16, 8, 64), dtype=torch.int8, device=cuda),
                big, **kw)
-    before = kernel.launches
+    before = LAUNCHES[kernel.__name__]
     empty = kernel(x[:0], w, **kw)
     assert tuple(empty.shape) == (0, 16, 8, 3) and empty.dtype == torch.int8
-    assert kernel.launches == before
+    assert LAUNCHES[kernel.__name__] == before
 
 
 # every entry that goes through ``conv2d.launch_layer``: (kernel, plain,
@@ -245,13 +249,13 @@ def test_layer_kernel_launches_on_the_current_stream(cuda, name):
     staged = torch.zeros_like(xc)
     torch.cuda.synchronize()
     side = torch.cuda.Stream()
-    before = kernel.launches
+    before = LAUNCHES[kernel.__name__]
     with torch.cuda.stream(side):
         torch.cuda._sleep(50_000_000)
         staged.copy_(xc)
         y = kernel(staged, wc, **kw)
     side.synchronize()
-    assert kernel.launches == before + 1
+    assert LAUNCHES[kernel.__name__] == before + 1
     assert torch.equal(y, plain(xc, wc, **kw))
 
 
@@ -269,10 +273,10 @@ def test_conv1_layer_at_path_shapes_on_card(cuda, shape, oc, d, c):
     rng = np.random.default_rng(shape[-1] + oc)
     x, w = operands(rng, shape, oc, d, c)
     xc, wc = torch.from_numpy(x).to(cuda), torch.from_numpy(w).to(cuda)
-    before = conv2d.conv1_layer.launches
+    before = LAUNCHES["conv1_layer"]
     y = conv2d.conv1_layer(xc, wc, data_bits=d, coeff_bits=c)
     torch.cuda.synchronize()
-    assert conv2d.conv1_layer.launches == before + 1
+    assert LAUNCHES["conv1_layer"] == before + 1
     assert tuple(y.shape) == (shape[0], oc, *shape[1:3])
     assert torch.equal(y, conv2d.conv1_layer_plain(xc, wc, data_bits=d,
                                                    coeff_bits=c))
@@ -329,13 +333,13 @@ def test_slice_on_card_matches_golden_through_all_kernels(cuda):
     counters = [conv2d.conv1_layer, base.fused_dot_layer_requant,
                 base.packed_dot_layer_requant, base.fused_dot_layer,
                 base.packed_dot_layer]
-    before = [fn.launches for fn in counters]
+    before = [LAUNCHES[fn.__name__] for fn in counters]
     reqs = [ImageRequest(image=x, request_id=i)
             for i, x in enumerate(engine.compiled.sample_inputs(8))]
     engine.run(reqs)
     assert np.array_equal(np.stack([r.image for r in reqs]), gx)
     assert np.array_equal(np.stack([r.output for r in reqs]), gy)
-    assert [fn.launches - b for fn, b in zip(counters, before)] \
+    assert [LAUNCHES[fn.__name__] - b for fn, b in zip(counters, before)] \
         == [1, 1, 1, 0, 0]
 
 
@@ -350,7 +354,7 @@ def test_gateway_on_card_matches_golden(cuda):
     counters = [conv2d.conv1_layer, base.fused_dot_layer_requant,
                 base.packed_dot_layer_requant, base.fused_dot_layer,
                 base.packed_dot_layer]
-    before = [fn.launches for fn in counters]
+    before = [LAUNCHES[fn.__name__] for fn in counters]
 
     async def main():
         async with gw:
@@ -361,7 +365,7 @@ def test_gateway_on_card_matches_golden(cuda):
     assert np.array_equal(np.stack(outs), gy)
     forwards = sum(engine.compiled.bucket_hits.values())
     assert forwards == 1 and gw.stats()["served"] == len(gx)
-    assert [fn.launches - b for fn, b in zip(counters, before)] \
+    assert [LAUNCHES[fn.__name__] - b for fn, b in zip(counters, before)] \
         == [1, 1, 1, 0, 0]
 
 
@@ -500,10 +504,10 @@ def test_plane_kernel_matches_plain_on_card(cuda, name, d, c):
     rng = np.random.default_rng(500 * d + c)
     x, w = plane_operands(rng, name, 33, 32, 40, d, c)
     xc, wc = x.to(cuda), w.to(cuda)
-    before = kernel.launches
+    before = LAUNCHES[kernel.__name__]
     y = kernel(xc, wc, data_bits=d, coeff_bits=c)
     torch.cuda.synchronize()
-    assert kernel.launches == before + 1
+    assert LAUNCHES[kernel.__name__] == before + 1
     n_out = () if name == "conv2" else (2,)
     assert y.dtype == torch.int32 and tuple(y.shape) == (33, *n_out, 32, 40)
     assert torch.equal(y, plain(xc, wc, data_bits=d, coeff_bits=c))
@@ -555,13 +559,13 @@ def test_plane_kernel_launches_on_the_current_stream(cuda, name):
     staged = torch.zeros_like(xc)
     torch.cuda.synchronize()
     side = torch.cuda.Stream()
-    before = kernel.launches
+    before = LAUNCHES[kernel.__name__]
     with torch.cuda.stream(side):
         torch.cuda._sleep(50_000_000)
         staged.copy_(xc)
         y = kernel(staged, wc, data_bits=8, coeff_bits=6)
     side.synchronize()
-    assert kernel.launches == before + 1
+    assert LAUNCHES[kernel.__name__] == before + 1
     assert torch.equal(y, plain(xc, wc, data_bits=8, coeff_bits=6))
 
 
@@ -575,9 +579,9 @@ def test_plane_kernel_refuses_what_it_does_not_take(cuda, name):
                data_bits=6, coeff_bits=4)
     with pytest.raises(ValueError, match="on cuda"):
         kernel(x, w.cpu(), data_bits=6, coeff_bits=4)
-    before = kernel.launches
+    before = LAUNCHES[kernel.__name__]
     assert kernel(x[:0], w[:0], data_bits=6, coeff_bits=4).shape[0] == 0
-    assert kernel.launches == before
+    assert LAUNCHES[kernel.__name__] == before
 
 
 def test_apply_on_card_matches_golden(cuda):
@@ -617,9 +621,9 @@ def test_validate_plan_on_card(cuda, tmp_path):
     plan = deploy.plan_deployment(cfg, cnn.fitted_block_models(rows),
                                   allocate.get_device("v5e"), target=0.8,
                                   on_infeasible="fallback")
-    before = conv2d.conv4_planes.launches
+    before = LAUNCHES["conv4_planes"]
     val = deploy.validate_plan(plan, cfg, device=cuda)
-    assert conv2d.conv4_planes.launches > before
+    assert LAUNCHES["conv4_planes"] > before
     assert val.bit_exact
     for r, m in val.metrics.items():
         assert m["mape_pct"] < 2.0, (r, m)
@@ -649,10 +653,10 @@ def test_conv1d_kernel_matches_plain_on_card(cuda, b, s, c, k, with_state,
     w = torch.randn(k, c, generator=g, device=cuda).to(dtype)
     st = torch.randn(b, k - 1, c, generator=g, device=cuda).to(dtype) \
         if with_state else None
-    before = conv1d.causal_conv1d.launches
+    before = LAUNCHES["causal_conv1d"]
     y = conv1d.causal_conv1d(x, w, st)
     torch.cuda.synchronize()
-    assert conv1d.causal_conv1d.launches == before + 1
+    assert LAUNCHES["causal_conv1d"] == before + 1
     assert y.dtype == torch.float32 and tuple(y.shape) == (b, s, c)
     assert torch.equal(y, conv1d.causal_conv1d_plain(x, w, st))
 
@@ -690,10 +694,10 @@ def test_flash_kernel_matches_plain_on_card(cuda, b, s, t, h, kh, d, causal,
     q = torch.randn(b, s, h, d, generator=g, device=cuda).to(dtype)
     k = torch.randn(b, t, kh, d, generator=g, device=cuda).to(dtype)
     v = torch.randn(b, t, kh, d, generator=g, device=cuda).to(dtype)
-    before = fa.flash_attention.launches
+    before = LAUNCHES["flash_attention"]
     out = fa.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert fa.flash_attention.launches == before + 1
+    assert LAUNCHES["flash_attention"] == before + 1
     assert out.dtype == dtype and out.shape == q.shape
     want = fa.flash_attention_plain(q, k, v, causal=causal)
     tol = dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32 \
@@ -744,7 +748,6 @@ def test_lm_on_card_matches_golden(cuda, arch):
     times per Mamba layer per call; the expert kernels twice per MoE
     layer per call (a float32 gated SiLU MoE MLP in inference), never
     without one."""
-    from repro_torch.kernels import moe_expert_gemm as meg
     cfg = smoke_config(arch).with_overrides(dtype="float32")
     with np.load(LM_GOLDEN_ARCHS[arch]) as z:
         g = {k: z[k] for k in z.files if k.startswith(arch + "/")}
@@ -757,12 +760,12 @@ def test_lm_on_card_matches_golden(cuda, arch):
             batch[name] = g[f"{arch}/{name}"]
     attn = sum(s.mixer == "attn" for s in cfg.layer_cycle) * cfg.n_cycles
     mamba = sum(s.mixer == "mamba" for s in cfg.layer_cycle) * cfg.n_cycles
-    k7, k8 = conv1d.causal_conv1d.launches, fa.flash_attention.launches
-    experts = meg.moe_expert_ffn.launches
+    k7, k8 = LAUNCHES["causal_conv1d"], LAUNCHES["flash_attention"]
+    experts = meg.launches()
     logits, _ = model.prefill(params, batch)
-    assert fa.flash_attention.launches - k8 == attn
-    assert conv1d.causal_conv1d.launches - k7 == 3 * mamba
-    assert (meg.moe_expert_ffn.launches - experts > 0) \
+    assert LAUNCHES["flash_attention"] - k8 == attn
+    assert LAUNCHES["causal_conv1d"] - k7 == 3 * mamba
+    assert (meg.launches() - experts > 0) \
         == (cfg.moe is not None)
     np.testing.assert_allclose(logits.cpu().numpy(),
                                g[f"{arch}/prefill_logits"], rtol=2e-3,
@@ -772,7 +775,7 @@ def test_lm_on_card_matches_golden(cuda, arch):
     _, cache = model.prefill(params, dict(batch,
                                           tokens=batch["tokens"][:, :start]))
     cache = _pad_kv(cache, len(pos))
-    k7, k8 = conv1d.causal_conv1d.launches, fa.flash_attention.launches
+    k7, k8 = LAUNCHES["causal_conv1d"], LAUNCHES["flash_attention"]
     for i, p in enumerate(pos):
         t = start + i
         logits, cache = model.decode_step(params, cache,
@@ -780,8 +783,8 @@ def test_lm_on_card_matches_golden(cuda, arch):
         np.testing.assert_allclose(logits.cpu().numpy(),
                                    g[f"{arch}/decode_logits"][i],
                                    rtol=2e-3, atol=2e-3)
-    assert fa.flash_attention.launches == k8
-    assert conv1d.causal_conv1d.launches - k7 == 3 * mamba * len(pos)
+    assert LAUNCHES["flash_attention"] == k8
+    assert LAUNCHES["causal_conv1d"] - k7 == 3 * mamba * len(pos)
     if f"{arch}/engine_prompts" in g:
         reqs = [Request(prompt=[int(t) for t in p], request_id=i)
                 for i, p in enumerate(g[f"{arch}/engine_prompts"])]
@@ -801,16 +804,16 @@ def test_qwen3_moe_full_width_cut_kernel_matches_plain_on_card(cuda):
     model = build_model(cfg, cuda)
     params = model.init(torch.Generator(device=cuda).manual_seed(1))
     toks = np.random.default_rng(2).integers(1, cfg.vocab_size, (1, 100))
-    before = fa.flash_attention.launches
+    before = LAUNCHES["flash_attention"]
     logits, _ = model.prefill(params, {"tokens": toks})
-    assert fa.flash_attention.launches - before == 4
+    assert LAUNCHES["flash_attention"] - before == 4
     kernel = attention.flash_attention
     attention.flash_attention = fa.flash_attention_plain
     try:
         plain, _ = model.prefill(params, {"tokens": toks})
     finally:
         attention.flash_attention = kernel
-    assert fa.flash_attention.launches - before == 4
+    assert LAUNCHES["flash_attention"] - before == 4
     a, b = logits.float().cpu(), plain.float().cpu()
     assert torch.isfinite(a).all()
     assert float((a - b).norm() / b.norm()) < 5e-2
@@ -860,7 +863,6 @@ def test_moe_expert_gemm_matches_plain_on_card(cuda, e, cap, d, f, fill):
     every row past the fill NaN in their inputs; two launches a call.
     The second shape has two row tiles, widths that are no multiple of
     the column slices, and a fill past the capacity."""
-    from repro_torch.kernels import moe_expert_gemm as meg
     g = torch.Generator(device="cuda").manual_seed(3)
     x = torch.randn(e, cap, d, generator=g, device="cuda")
     wg, wu = (torch.randn(e, d, f, generator=g, device="cuda") / d ** 0.5
@@ -874,11 +876,11 @@ def test_moe_expert_gemm_matches_plain_on_card(cuda, e, cap, d, f, fill):
     y_want = meg.expert_ffn_bmm(x, wu, wd, wg,
                                 mid=lambda h: hs.append(h) or h)
     h_want = hs[0]
-    before = meg.moe_expert_ffn.launches
+    before = meg.launches()
     h = meg.moe_expert_gemm_gate_up(x, wg, wu, fill)
     y = meg.moe_expert_ffn(x, wg, wu, wd, fill)
     torch.cuda.synchronize()
-    assert meg.moe_expert_ffn.launches - before == 3
+    assert meg.launches() - before == 3
     for got, want in ((h, h_want), (y, y_want)):
         rows = ~empty.expand_as(got)
         torch.testing.assert_close(got[rows], want[rows], rtol=1e-4,
@@ -960,7 +962,6 @@ def test_moe_expert_gemm_bf16_matches_float32_on_card(cuda, case):
     kernel alone on the gate_up kernel's h equal to the pair; with every
     row past the fill NaN in x and in h, every written row unchanged bit
     for bit; two launches a call."""
-    from repro_torch.kernels import moe_expert_gemm as meg
     e, cap, d, f, spec, rows = BF16_EXPERT_CASES[case]
     fill = _bf16_expert_fill(spec, e, cap, d, seed=11)
     x, wg, wu, wd, filled = _bf16_expert_inputs(e, cap, d, f, fill, seed=12)
@@ -970,11 +971,11 @@ def test_moe_expert_gemm_bf16_matches_float32_on_card(cuda, case):
     del xf, wgf, wuf, wdf
     hs = []
     y_bmm = meg.expert_ffn_bmm(x, wu, wd, wg, mid=lambda h: hs.append(h) or h)
-    before = meg.moe_expert_ffn.launches
+    before = meg.launches()
     h = meg.moe_expert_gemm_gate_up(x, wg, wu, fill, rows)
     y = meg.moe_expert_ffn(x, wg, wu, wd, fill, rows)
     torch.cuda.synchronize()
-    assert meg.moe_expert_ffn.launches - before == 3
+    assert meg.launches() - before == 3
     assert h.dtype == y.dtype == torch.bfloat16
     rows_h, rows_y = filled.expand_as(h), filled.expand_as(y)
     assert bool(rows_y.any()) == (int(fill.sum()) > 0)
@@ -1002,7 +1003,6 @@ def test_moe_expert_gemm_bf16_graph_replays_equal_eager_on_card(cuda):
     replayed with the fills and the buffer changed between replays (four
     seeded routings, no row, every row): each replay's filled rows equal
     an eager call's on the same inputs bit for bit."""
-    from repro_torch.kernels import moe_expert_gemm as meg
     e, cap, d, f = 128, 8, 2048, 768
     fills = [_bf16_expert_fill("route:8", e, cap, d, seed=s)
              for s in range(4)]
@@ -1062,10 +1062,10 @@ def test_flash_backward_on_card_matches_cpu(cuda, b, s, h, kh, d, dtype):
     arrays = [rng.standard_normal((b, s, n, d)).astype(np.float32)
               for n in (h, kh, kh)]
     dout = rng.standard_normal((b, s, h, d)).astype(dtype)
-    before = fa.flash_attention.launches
+    before = LAUNCHES["flash_attention"]
     out, grads = _grads_on(cuda, fa.flash_attention, arrays, dout)
     torch.cuda.synchronize()
-    assert fa.flash_attention.launches == before + 1
+    assert LAUNCHES["flash_attention"] == before + 1
     cpu_out, cpu_grads = _grads_on("cpu", fa.flash_attention, arrays, dout)
     f32 = dtype == np.float32
     torch.testing.assert_close(out, cpu_out, **(
@@ -1089,10 +1089,10 @@ def test_conv1d_backward_on_card_matches_cpu(cuda, b, s, c, k, dtype):
     arrays = [rng.standard_normal((b, s, c)).astype(np.float32),
               rng.standard_normal((k, c)).astype(np.float32)]
     dout = rng.standard_normal((b, s, c)).astype(dtype)
-    before = conv1d.causal_conv1d.launches
+    before = LAUNCHES["causal_conv1d"]
     out, grads = _grads_on(cuda, conv1d.causal_conv1d, arrays, dout)
     torch.cuda.synchronize()
-    assert conv1d.causal_conv1d.launches == before + 1
+    assert LAUNCHES["causal_conv1d"] == before + 1
     cpu_out, cpu_grads = _grads_on("cpu", conv1d.causal_conv1d, arrays,
                                    dout)
     assert torch.equal(out, cpu_out)
@@ -1118,12 +1118,12 @@ def test_forward_train_on_card_matches_golden(cuda, arch):
     cfg = smoke_config(arch).with_overrides(dtype="float32")
     params = convert.lm_params_from_numpy(
         convert.nested_from_flat(g, f"{arch}/params"), cfg, cuda)
-    before = fa.flash_attention.launches + conv1d.causal_conv1d.launches
+    before = LAUNCHES["flash_attention"] + LAUNCHES["causal_conv1d"]
     loss, _, grads = loss_and_grads(
         build_model(cfg, cuda), params,
         {"tokens": g[f"{arch}/tokens"], "labels": g[f"{arch}/labels"]})
     layers = cfg.n_layers * (3 if arch.startswith("mamba") else 1)
-    assert fa.flash_attention.launches + conv1d.causal_conv1d.launches \
+    assert LAUNCHES["flash_attention"] + LAUNCHES["causal_conv1d"] \
         == before + 2 * layers
     np.testing.assert_allclose(float(loss), g[f"{arch}/loss"], rtol=1e-5)
     for k, v in tree.flatten(grads).items():
@@ -1260,7 +1260,6 @@ def test_per_row_decode_graph_matches_eager_on_card(cuda):
     float32 (TF32 off: a pool of three and a request alone take
     products of other shapes), serves each request the tokens it gets
     alone."""
-    from repro_torch.kernels import moe_expert_gemm as meg
     from repro_torch.models import transformer as tf
     cfg = smoke_config("qwen3-30b-a3b")
     model = build_model(cfg, cuda)
@@ -1279,14 +1278,13 @@ def test_per_row_decode_graph_matches_eager_on_card(cuda):
              for k, e in graphed.items()}
     tok = torch.tensor(toks, device=cuda)[:, None]
     pos = torch.tensor([5, 9, 13], device=cuda)
-    ffn = meg.moe_expert_ffn
     for _ in range(4):
-        n0, l0 = ffn.bmm_fallbacks, ffn.launches
+        n0, l0 = LAUNCHES[meg.BMM_FALLBACK], meg.launches()
         got, _ = model.decode_step(params, graphed, tok, pos)
         # the eager first step and each replay: every layer's bf16
         # expert products on the two bf16 kernels, none on torch.bmm
-        assert ffn.bmm_fallbacks - n0 == 0
-        assert ffn.launches - l0 == 2 * cfg.n_layers
+        assert LAUNCHES[meg.BMM_FALLBACK] - n0 == 0
+        assert meg.launches() - l0 == 2 * cfg.n_layers
         want, _ = tf.decode_step(params, eager, tok, pos, cfg)
         assert torch.equal(got, want)
         tok, pos = want.argmax(-1)[:, None], pos + 1
@@ -1336,10 +1334,10 @@ def test_per_slot_engine_on_card_serves_each_request_as_alone(cuda, arch):
         reqs = [Request(prompt=list(p)) for p in ps]
         engine = Engine(build_model(cfg, cuda), params, ServeConfig(
             max_batch=batch, max_len=32, max_new_tokens=6))
-        k7 = conv1d.causal_conv1d.launches
+        k7 = LAUNCHES["causal_conv1d"]
         engine.run(reqs)
         t = engine.timings()
-        assert conv1d.causal_conv1d.launches - k7 \
+        assert LAUNCHES["causal_conv1d"] - k7 \
             == K7_PER_MAMBA_LAYER * mamba * (t["prefills"]
                                              + t["decode_steps"])
         return [r.out_tokens for r in reqs]

@@ -14,6 +14,7 @@ from repro.kernels import conv2d as ref_conv2d
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_ref
 from repro_torch.kernels import conv2d, ops, ref
+from repro_torch.kernels.build import LAUNCHES
 from torch_parity import operands
 
 BIT_GRID = list(itertools.product(range(3, 17), repeat=2))
@@ -140,8 +141,8 @@ def test_conv1_layer_rejects_what_the_kernel_does_not_take(bad):
 
 
 def test_conv1_layer_on_cpu_counts_no_launch():
-    before = conv2d.conv1_layer.launches
+    before = LAUNCHES["conv1_layer"]
     conv2d.conv1_layer(torch.zeros((1, 16, 8, 1), dtype=torch.int8),
                        torch.ones((2, 1, 3, 3), dtype=torch.int8),
                        data_bits=8, coeff_bits=6)
-    assert conv2d.conv1_layer.launches == before
+    assert LAUNCHES["conv1_layer"] == before

@@ -28,6 +28,7 @@ from repro.kernels.flash_attention import flash_attention as ref_flash
 from repro.models import attention as ref_attn
 from repro.models import ssm as ref_ssm
 from repro_torch.kernels import conv1d, flash_attention as fa, ops
+from repro_torch.kernels.build import LAUNCHES
 from repro_torch.models import ssm
 from tests.test_attention import naive_attention
 
@@ -50,9 +51,9 @@ def test_conv1d_plain_matches_pallas(s, c, k):
     x = rng.normal(size=(2, s, c)).astype(np.float32)
     w = rng.normal(size=(k, c)).astype(np.float32)
     y_ref = np.asarray(ref_ops.causal_conv1d(jnp.asarray(x), jnp.asarray(w)))
-    before = conv1d.causal_conv1d.launches
+    before = LAUNCHES["causal_conv1d"]
     y = ops.causal_conv1d(_t(x), _t(w))
-    assert conv1d.causal_conv1d.launches == before      # plain on the CPU
+    assert LAUNCHES["causal_conv1d"] == before  # plain on the CPU
     assert y.dtype == torch.float32 and tuple(y.shape) == (2, s, c)
     np.testing.assert_allclose(y.numpy(), y_ref, rtol=CONV_TOL,
                                atol=CONV_TOL)
@@ -224,9 +225,9 @@ def test_flash_plain_matches_pallas(h, kh, causal, s, t):
     want = np.asarray(ref_flash(jnp.asarray(q), jnp.asarray(k),
                                 jnp.asarray(v), causal=causal, block_q=64,
                                 block_k=64))
-    before = fa.flash_attention.launches
+    before = LAUNCHES["flash_attention"]
     out = fa.flash_attention(_t(q), _t(k), _t(v), causal=causal)
-    assert fa.flash_attention.launches == before         # plain on the CPU
+    assert LAUNCHES["flash_attention"] == before  # plain on the CPU
     assert out.dtype == torch.float32 and tuple(out.shape) == (b, s, h, d)
     np.testing.assert_allclose(out.numpy(), want, rtol=F32_TOL,
                                atol=F32_TOL)
@@ -297,11 +298,11 @@ def test_flash_backward_matches_reference_grad(h, kh, s, causal,
         ref_loss, argnums=(0, 1, 2), has_aux=True)(
             jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     tq, tk, tv = (_t(a).requires_grad_() for a in (q, k, v))
-    before = fa.flash_attention.launches
+    before = LAUNCHES["flash_attention"]
     out = fa.flash_attention(tq, tk, tv, causal=causal)
     assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
     out.backward(_t(dout))
-    assert fa.flash_attention.launches == before         # plain on the CPU
+    assert LAUNCHES["flash_attention"] == before  # plain on the CPU
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref_out),
                                rtol=F32_TOL, atol=F32_TOL)
     for got, ref, name in ((tq, want[0], "q"), (tk, want[1], "k"),

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs import smoke_config
 from repro_torch.kernels import moe_expert_gemm as meg
+from repro_torch.kernels.build import LAUNCHES
 from repro_torch.models import moe
 
 E, CAP, D, FF = 6, 16, 12, 20
@@ -146,7 +147,6 @@ def _layer_with_poisoned_rows(monkeypatch, cfg, dtype):
         seen.append(fill)
         y = plain(xb, wg, wu, wd, fill, rows)
         return y.masked_fill(~_filled(fill, y.shape[1]), float("nan"))
-    poisoned.launches = poisoned.bmm_fallbacks = 0
     monkeypatch.setattr(meg, "moe_expert_ffn", poisoned)
     out, aux = moe.moe_layer(p, x, cfg)
     cap = moe._capacity(cfg.moe.capacity_factor, 32, 2, 8)
@@ -159,9 +159,9 @@ def _layer_with_poisoned_rows(monkeypatch, cfg, dtype):
 
 
 def _fallbacks(fn):
-    before = meg.moe_expert_ffn.bmm_fallbacks
+    before = LAUNCHES[meg.BMM_FALLBACK]
     fn()
-    return meg.moe_expert_ffn.bmm_fallbacks - before
+    return LAUNCHES[meg.BMM_FALLBACK] - before
 
 
 def test_float32_inference_takes_the_ragged_products(monkeypatch,
@@ -176,10 +176,10 @@ def test_float32_inference_takes_the_ragged_products(monkeypatch,
     real = meg.expert_ffn_bmm
     monkeypatch.setattr(meg, "expert_ffn_bmm",
                         lambda *a, **kw: calls.append(1) or real(*a, **kw))
-    launches = meg.moe_expert_ffn.launches
+    launches = meg.launches()
     with torch.no_grad():
         assert _fallbacks(lambda: moe.moe_layer(p, x, cfg)) == 0
-    assert calls == [1] and meg.moe_expert_ffn.launches == launches
+    assert calls == [1] and meg.launches() == launches
 
 
 #: the LM's MoE MLP in inference: bf16, capacity-bounded or dropless
@@ -210,19 +210,18 @@ def test_inference_takes_the_ragged_products(case, monkeypatch,
     def ffn(xb, wg, wu, wd, fill, rows=None):
         seen.append((xb.dtype, tuple(xb.shape), int(fill.sum()), rows))
         return real(xb, wg, wu, wd, fill, rows)
-    ffn.launches = ffn.bmm_fallbacks = 0
     monkeypatch.setattr(meg, "moe_expert_ffn", ffn)
-    launches = real.launches
+    launches = meg.launches()
     with torch.no_grad():
-        before = real.bmm_fallbacks
+        before = LAUNCHES[meg.BMM_FALLBACK]
         out, _ = moe.moe_layer(p, x, cfg)
-        assert real.bmm_fallbacks == before
+        assert LAUNCHES[meg.BMM_FALLBACK] == before
     n, k, e = 32, cfg.moe.top_k, cfg.moe.num_experts
     cap = moe._capacity(cfg.moe.capacity_factor, n, k, e)
     assert seen == [(torch.bfloat16, (e, cap, cfg.d_model),
                      seen[0][2], n * k)]
     assert seen[0][2] <= n * k <= e * cap
-    assert real.launches == launches and out.dtype == torch.bfloat16
+    assert meg.launches() == launches and out.dtype == torch.bfloat16
 
 
 def _grad_call(cfg, p, x):
@@ -257,7 +256,7 @@ def test_cpu_calls_keep_bmm_and_count():
 def test_other_calls_keep_bmm_and_count(case, kernels_on_cpu):
     """A gradient (training, in float32 or bf16), the grouped path, an
     ungated or non-SiLU FFN: ``torch.bmm``, counted in
-    ``bmm_fallbacks`` (once a call; the grouped path calls the products
+    ``BMM_FALLBACK`` (once a call; the grouped path calls the products
     once)."""
     cfg, dtype, call = CASES[case]()
     p, x = _layer_inputs(cfg)
@@ -352,7 +351,9 @@ def test_wrapper_refuses_what_the_kernels_do_not_take(bad):
         x = x.to("meta")
     with pytest.raises(ValueError):
         meg.moe_expert_ffn(x, p["w_gate"], p["w_up"], p["w_down"], fill)
+    # float32 weights: a dtype the kernels do not take is refused before
+    # the launch path looks at the device
     with pytest.raises(ValueError, match="no kernel"):
         meg.moe_expert_gemm_down(torch.empty(E, CAP, FF, device="meta"),
-                                 p["w_down"].to("meta"),
+                                 p["w_down"].float().to("meta"),
                                  fill.to("meta"))
